@@ -1,0 +1,101 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX
+package, builds nothing when imported, and never falls back to the CPU on
+its own."""
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = os.path.join(ROOT, "src")
+
+SLICE = [
+    "repro_torch", "repro_torch.device",
+    "repro_torch.core", "repro_torch.core.metrics",
+    "repro_torch.core.hardware", "repro_torch.core.calibrate",
+    "repro_torch.core.atoms", "repro_torch.core.schedule",
+    "repro_torch.core.emulator", "repro_torch.core.predictor",
+    "repro_torch.core.store", "repro_torch.core.watchers",
+    "repro_torch.obs", "repro_torch.obs.clock",
+    "repro_torch.kernels", "repro_torch.kernels.build",
+    "repro_torch.kernels.compute_atom",
+    "repro_torch.kernels.compute_atom.kernel",
+    "repro_torch.kernels.compute_atom.ops",
+    "repro_torch.kernels.compute_atom.ref",
+    "repro_torch.kernels.memory_atom",
+    "repro_torch.kernels.memory_atom.kernel",
+    "repro_torch.kernels.memory_atom.ops",
+    "repro_torch.kernels.memory_atom.ref",
+    "repro_torch.scenarios", "repro_torch.scenarios.base",
+    "repro_torch.scenarios.serving",
+]
+
+_CHILD = """
+import importlib, json, sys
+for name in sys.argv[1:]:
+    importlib.import_module(name)
+from repro_torch.kernels import build
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
+print(json.dumps({"bad": bad, "built": build._lib is not None}))
+"""
+
+
+def test_import_leaves_jax_and_repro_out():
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run([sys.executable, "-c", _CHILD, *SLICE], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    import json
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"bad": [], "built": False}
+
+
+def _port_files():
+    for d, _, files in os.walk(os.path.join(SRC, "repro_torch")):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(d, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+_FORBIDDEN = re.compile(r"^\s*(import jax\b|from jax\b|import repro\b(?!_)"
+                        r"|from repro\.|from repro import)", re.M)
+
+
+def test_port_sources_name_no_jax_or_repro():
+    files = list(_port_files())
+    assert len(files) > 20
+    for path in files:
+        with open(path) as f:
+            hits = _FORBIDDEN.findall(f.read())
+        assert not hits, f"{path}: {hits}"
+
+
+def test_default_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    from repro_torch.core import (Emulator, HostCalibration, calibrate)
+    from repro_torch.core.atoms import ComputeAtom, MemoryAtom
+    cal = HostCalibration(1e9, 1e9, 1e8, 1e8)
+    for make in (lambda: Emulator(),
+                 lambda: Emulator(calib=cal),
+                 lambda: Emulator(calib=cal, backend="cuda"),
+                 lambda: ComputeAtom(cal),
+                 lambda: MemoryAtom(cal),
+                 lambda: calibrate()):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+
+
+def test_kernel_build_reports_missing_nvcc(monkeypatch, tmp_path):
+    from repro_torch.kernels import build
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    if os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("the toolkit's default nvcc exists here")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.find_nvcc()
