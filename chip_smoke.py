@@ -11,7 +11,9 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
              several shapes, with its device time, its plain version's, a
              PyTorch library call's (each a CUDA graph's replay) and the
              bound: the datasheet rates, or L2's read rate where a pass's
-             buffers fit in L2, read in this run by ``csrc/l2_probe.cu``
+             buffers fit in L2, read in this run by ``csrc/l2_probe.cu``;
+             flash attention over the JAX package's test sweep, Gemma2's
+             head dim and the serving shape
   main_path  the emulator end to end: a Qwen2-7B-sized ``serving_traffic``
              profile is stored, reloaded, and emulated with the fused
              ``"torch"`` backend and the per-sample ``"cuda"`` (kernel)
@@ -19,6 +21,15 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
              the schedule, the device's busy share is read from the
              launches and the device time of each, and ``predict`` is
              printed beside
+  serve      the dense zoo's serving path: Qwen2-7B's widths cut to 2
+             layers in float32, the flash kernel against dense attention
+             (final hidden states, greedy tokens); then the full model in
+             bf16 (weights made on the card from a seed) serving 4
+             requests under the ``RuntimeProfiler`` (prefill and decode
+             times, tokens/s, peak memory, flash launches = layers x
+             waves), traced prefill and decode steps, the profile stored,
+             reloaded and replayed on the ``"cuda"`` emulator backend, and
+             a full-depth report of the kernel against dense attention
 
 Then one ``{"kernels": [...]}`` line and, last, one ``{"ok": true, ...}``
 line.  Any failed check exits non-zero before the last line.  Without a
@@ -28,6 +39,7 @@ and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -41,11 +53,47 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # and from L2's read rate where the bytes stay in L2 (the datasheet gives
 # none; l2_read_rates measures it).
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12       # tensor cores, dense
 PEAK_HBM_BPS = 3.35e12
 L2_BYTES = 50e6
 
 BURN_TOL = 1e-5            # atol and rtol: exact float32 on both sides
 BF16_RTOL = 1e-2           # the JAX package's own bf16 stream tolerance
+# flash attention, atol and rtol: the JAX package's own (tests/test_kernels.py)
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# final hidden states of the depth-cut model, "cuda" against "full" in
+# float32: the two sum in other orders (1.7e-5 seen on the CPU at the
+# reduced size); 1e-4 leaves room for 512 tokens at full width
+DEPTH_CUT_TOL = 1e-4
+
+# (BH, BKV, Sq, Sk, hd, block_q, block_kv, causal, window, softcap): the
+# JAX package's SWEEP (tests/test_kernels.py), Gemma2's head dim with its
+# window and softcap, then unequal lengths and windows that leave rows with
+# no visible key (the kernel's path that visits every kv tile)
+FLASH_CASES = [
+    (2, 2, 64, 64, 16, 16, 16, True, None, None),
+    (2, 2, 64, 64, 16, 32, 16, True, 9, None),
+    (2, 2, 64, 64, 16, 16, 32, True, None, 30.0),
+    (4, 2, 32, 32, 8, 8, 8, True, None, None),
+    (3, 1, 48, 48, 32, 16, 16, False, None, None),
+    (2, 2, 128, 128, 64, 64, 32, True, 40, 25.0),
+    (8, 4, 512, 512, 256, 512, 512, True, 128, 50.0),
+    (4, 2, 100, 37, 64, 100, 37, True, None, None),      # Sq > Sk
+    (2, 1, 24, 40, 16, 8, 8, False, 7, None),            # Sq < Sk
+    (2, 1, 37, 100, 128, 37, 100, True, 16, 30.0),       # Sq < Sk, window
+    (4, 2, 40, 24, 16, 8, 8, True, 5, None),             # rows 28.. see none
+    (2, 1, 96, 40, 256, 96, 40, True, 20, None),         # rows 60.. see none
+    (2, 2, 64, 64, 32, 16, 16, True, 0, None),           # window 0: no row
+    (2, 2, 64, 64, 32, 16, 16, False, 0, 30.0),          # window 0, not causal
+]
+# the serving shape in bfloat16: besides the elementwise 2e-2, the error's
+# RMS over the output's RMS (outputs average ~1000 values, so their typical
+# size is ~0.05 and 2e-2 alone is loose there)
+FLASH_SERVE_REL_RMS = 1e-2
+# the serving shape: Qwen2-7B's prefill of 4 prompts of 2048 tokens
+SERVE_B, SERVE_S, SERVE_HQ, SERVE_HK, SERVE_HD = 4, 2048, 28, 4, 128
+SERVE_PROMPTS = (2048, 1536, 1024, 512)
+SERVE_NEW_TOKENS = 16
 
 
 def emit(phase: str, **fields) -> None:
@@ -98,6 +146,13 @@ def chain(body, x, steps: int):
     for _ in range(steps):
         x = body(x)
     return x
+
+
+def repeat(fn, steps: int):
+    """``fn()`` called ``steps`` times; the last result."""
+    for _ in range(steps):
+        out = fn()
+    return out
 
 
 def l2_read_rates(torch) -> dict:
@@ -278,6 +333,7 @@ def phase_kernels(torch, np):
                     "bound_GB_per_s": mem_bps / 1e9}
         rates[n]["share_of_bound"] = rates[n]["bound_ms"] / ms
         emit("kernels", kernel="stream_pass", rate_n=n, **rates[n])
+    rows["flash_attention"] = phase_flash(torch, np, rng)
     main = rates[1 << 22]
     rows["stream_pass"] = {
         "name": "stream_pass", "route": "cuda",
@@ -290,6 +346,101 @@ def phase_kernels(torch, np):
         "timing": "device time: CUDA graph of 200 passes",
     }
     return rows
+
+
+def phase_flash(torch, np, rng):
+    """flash_attention against its plain version on the card, then timed
+    at the serving shape beside scaled_dot_product_attention (a yardstick
+    the port never calls)."""
+    from repro_torch.kernels.flash_attention import kernel as fk, ref as fref
+    dev = torch.device("cuda")
+    flash_err = 0.0
+    for dtype_name, tol in FLASH_TOL.items():
+        dtype = getattr(torch, dtype_name)
+        for case in FLASH_CASES:
+            BH, BKV, Sq, Sk, hd, bq, bkv, causal, window, softcap = case
+            q, k, v = (torch.from_numpy(rng.standard_normal(
+                (n, S, hd)).astype(np.float32)).to(dev, dtype)
+                for n, S in ((BH, Sq), (BKV, Sk), (BKV, Sk)))
+            kw = dict(causal=causal, window=window, softcap=softcap,
+                      group=BH // BKV)
+            got = fk.flash_attention(q, k, v, block_q=bq, block_kv=bkv, **kw)
+            want = fref.flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            ok = got.dtype == dtype and torch.allclose(
+                got.float(), want.float(), atol=tol, rtol=tol)
+            emit("kernels", kernel="flash_attention", dtype=str(dtype),
+                 case=list(case), max_abs_err=err, tol=tol, ok=ok)
+            if not ok:
+                fail(f"flash_attention {dtype} {case}: max abs err {err} "
+                     f"beyond atol=rtol={tol}")
+            flash_err = max(flash_err, err)
+
+    B, S, Hq, Hk, hd = SERVE_B, SERVE_S, SERVE_HQ, SERVE_HK, SERVE_HD
+    G = Hq // Hk
+    q32 = torch.randn(B * Hq, S, hd, device=dev)
+    k32 = torch.randn(B * Hk, S, hd, device=dev)
+    v32 = torch.randn(B * Hk, S, hd, device=dev)
+    for dtype_name, tol in FLASH_TOL.items():
+        dtype = getattr(torch, dtype_name)
+        q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+        got = fk.flash_attention(q, k, v, block_q=512, block_kv=1024,
+                                 group=G).float()
+        want = fref.flash_attention(q, k, v, group=G).float()
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        rel_rms = ((got - want).square().mean().sqrt()
+                   / want.square().mean().sqrt()).item()
+        ok = torch.allclose(got, want, atol=tol, rtol=tol)
+        if dtype == torch.bfloat16:
+            ok = ok and rel_rms < FLASH_SERVE_REL_RMS
+        emit("kernels", kernel="flash_attention", dtype=str(dtype),
+             case="serving shape", max_abs_err=err, tol=tol,
+             rel_rms_err=rel_rms, ok=ok)
+        if not ok:
+            fail(f"flash_attention {dtype} at the serving shape: max abs err "
+                 f"{err}, error RMS / output RMS {rel_rms}")
+        flash_err = max(flash_err, err)
+        del got, want
+    q, k, v = (t.to(torch.bfloat16) for t in (q32, k32, v32))
+    del q32, k32, v32
+
+    # the library call: k and v expanded to the query heads before capture
+    qs = q.view(B, Hq, S, hd)
+    ks = k.view(B, Hk, S, hd).repeat_interleave(G, dim=1)
+    vs = v.view(B, Hk, S, hd).repeat_interleave(G, dim=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    n_it = 20
+    ms = graph_ms(lambda: repeat(lambda: fk.flash_attention(
+        q, k, v, block_q=512, block_kv=1024, group=G), n_it), n_it)
+    plain_ms = graph_ms(lambda: repeat(lambda: fref.flash_attention(
+        q, k, v, group=G), 3), 3)
+    library_ms = graph_ms(lambda: repeat(lambda: sdpa(
+        qs, ks, vs, is_causal=True), n_it), n_it)
+    flops = fref.flops(B * Hq, S, S, hd, causal=True)
+    nbytes = 2 * (2 * B * Hq * S * hd + 2 * B * Hk * S * hd)  # q,out; k,v
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BPS
+    row = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:75",
+        "max_abs_err": flash_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_rate": "bf16 tensor cores dense, datasheet",
+        "bound_bytes_ms": t_bytes * 1e3, "flops": flops,
+        "library_ms": library_ms,
+        "library": "scaled_dot_product_attention, k/v expanded to 28 heads",
+        "unit": "one launch: causal prefill attention, B 4, S 2048, "
+                "28 query and 4 KV heads, hd 128, bf16",
+        "timing": "device time: CUDA graph of 20 launches (plain: 3)",
+    }
+    row["achieved_tflops"] = flops / (ms * 1e-3) / 1e12
+    row["share_of_bound"] = row["bound_ms"] / ms
+    emit("kernels", kernel="flash_attention", **{
+        k_: v_ for k_, v_ in row.items() if k_ != "name"})
+    return row
 
 
 def phase_main_path(torch, rows):
@@ -410,7 +561,212 @@ def phase_main_path(torch, rows):
         fail(f"fused segment on the card differs from the host by {err}")
 
     for name, row in rows.items():
-        row["launches"] = launches[name]
+        if name in launches:
+            row["launches"] = launches[name]
+
+
+def phase_serve(torch, np, rows):
+    """Qwen2-7B at full width through the port's serving path: a depth-cut
+    float32 check of the kernel against dense attention, then the full
+    model in bf16 serving 4 requests under the RuntimeProfiler, its profile
+    stored, reloaded and replayed by the emulator on the kernel backend,
+    and a report of the kernel against dense attention at full depth."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.run import SERVE_RUN, RunConfig
+    from repro_torch.core import (Emulator, ProfileStore, RuntimeProfiler,
+                                  calibrate)
+    from repro_torch.kernels.compute_atom import kernel as ck
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.memory_atom import kernel as mk
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.serve.engine import Engine, Request
+    dev = torch.device("cuda")
+    cfg = get_config("qwen2-7b")
+    V = cfg.vocab_size
+
+    # -- depth cut: full widths, 2 layers, float32, batch 2, prompt 512 ----
+    cut = dataclasses.replace(cfg, num_layers=2)
+    f32 = dict(param_dtype="float32", compute_dtype="float32",
+               cache_dtype="float32")
+    rng = np.random.default_rng(1)
+    prompts = rng.integers(0, V, (2, 512)).astype(np.int32)
+    toks = torch.from_numpy(prompts).to(dev)
+    params, hidden, served = None, {}, {}
+    for impl in ("full", "cuda"):
+        model = build_model(cut, RunConfig(attn_impl=impl, **f32))
+        if params is None:
+            params = model.init(torch.Generator(dev).manual_seed(0), dev)
+        with torch.inference_mode():
+            hidden[impl] = model.forward(params, {"tokens": toks})[0]
+        reqs = Engine(model, params, batch_slots=2, max_len=520).serve(
+            [Request(prompt=list(p), max_new_tokens=8) for p in prompts])
+        served[impl] = [r.out_tokens for r in reqs]
+    err = (hidden["cuda"] - hidden["full"]).abs().max().item()
+    emit("serve", step="depth_cut_f32", layers=2, batch=2, prompt=512,
+         max_abs_err_hidden=err, tol=DEPTH_CUT_TOL,
+         tokens_identical=served["cuda"] == served["full"],
+         tokens=served["cuda"])
+    if not (torch.isfinite(hidden["cuda"]).all() and err <= DEPTH_CUT_TOL):
+        fail(f"depth cut: final hidden states of 'cuda' and 'full' differ "
+             f"by {err} (tolerance {DEPTH_CUT_TOL})")
+    if served["cuda"] != served["full"]:
+        fail(f"depth cut: greedy tokens differ: {served}")
+    del params, hidden
+
+    # -- the full model: Qwen2-7B, bf16, weights made on the card ---------
+    model = build_model(cfg, dataclasses.replace(SERVE_RUN,
+                                                 attn_impl="cuda"))
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    emit("serve", step="init", seconds=time.perf_counter() - t0,
+         params=model.num_params(),
+         param_bytes=sum(t.numel() * t.element_size() for t in _leaves(
+             params)))
+    engine = Engine(model, params, batch_slots=SERVE_B,
+                    max_len=max(SERVE_PROMPTS) + SERVE_NEW_TOKENS)
+    rng = np.random.default_rng(2)
+    prompts = [list(rng.integers(0, V, n)) for n in SERVE_PROMPTS]
+
+    def requests(new_tokens):
+        return [Request(prompt=p, max_new_tokens=new_tokens)
+                for p in prompts]
+
+    engine.serve(requests(2))             # warm up: cuBLAS picks its kernels
+    times = {"prefill": [], "decode": []}
+
+    def timed(fn, key):
+        def run(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            times[key].append(time.perf_counter() - t)
+            return out
+        return run
+
+    engine.prefill = timed(engine.prefill, "prefill")
+    engine.decode = timed(engine.decode, "decode")
+    host = calibrate(device="cpu")         # host flops per CPU second
+    reqs = requests(SERVE_NEW_TOKENS)
+    waves = -(-len(reqs) // SERVE_B)
+    torch.cuda.reset_peak_memory_stats()
+    fk.launches = 0
+    prof = RuntimeProfiler(sample_rate=20).profile_callable(
+        lambda: engine.serve(reqs), command="serve-qwen2-7b",
+        tags={"batch": str(SERVE_B), "prompts": "2048/1536/1024/512"},
+        flops_per_cpu_s=host.flops_per_s)
+    launches = fk.launches
+    rows["flash_attention"]["launches"] = launches
+    generated = sum(len(r.out_tokens) for r in reqs)
+    serve_s = sum(times["prefill"]) + sum(times["decode"])
+    emit("serve", step="serve", model="qwen2-7b", layers=cfg.num_layers,
+         requests=len(reqs), waves=waves,
+         prefill_ms=sum(times["prefill"]) * 1e3 / waves,
+         decode_ms_per_step=sum(times["decode"]) * 1e3 / len(times["decode"]),
+         decode_steps=len(times["decode"]), generated_tokens=generated,
+         tokens_per_s=generated / serve_s, wall_s=prof.meta["wall_s"],
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         flash_launches=launches, tokens=[r.out_tokens for r in reqs])
+    if launches != cfg.num_layers * waves:
+        fail(f"flash_attention launched {launches} times, want "
+             f"{cfg.num_layers} layers x {waves} waves")
+    for r in reqs:
+        if len(r.out_tokens) != SERVE_NEW_TOKENS or not all(
+                0 <= t < V for t in r.out_tokens):
+            fail(f"a request got tokens {r.out_tokens}, want "
+                 f"{SERVE_NEW_TOKENS} in [0, {V})")
+
+    # where the device time of a prefill and of decode steps goes
+    batch = {"tokens": torch.zeros((SERVE_B, max(SERVE_PROMPTS)),
+                                   dtype=torch.int32, device=dev)}
+    for i, p in enumerate(prompts):
+        batch["tokens"][i, -len(p):] = torch.tensor(p, dtype=torch.int32)
+    with torch.inference_mode():
+        wall, busy, top = device_time(
+            torch, lambda: engine.prefill(params, batch))
+        emit("serve", step="trace_prefill", wall_s=wall, kernel_s=busy,
+             busy_share=busy / wall, top_kernels=top)
+        tok, cache = engine.prefill(params, batch)
+
+        def decode4():
+            nonlocal tok, cache
+            for _ in range(4):
+                tok, cache = engine.decode(params, tok, cache)
+
+        wall, busy, top = device_time(torch, decode4)
+        emit("serve", step="trace_decode_4_steps", wall_s=wall,
+             kernel_s=busy, busy_share=busy / wall, top_kernels=top)
+    del cache
+
+    # -- the profile: stored, reloaded, replayed on the kernel backend -----
+    with tempfile.TemporaryDirectory() as d:
+        store = ProfileStore(d)
+        store.add(prof)
+        loaded = store.latest(prof.command, prof.tags)
+    if loaded is None or loaded.totals != prof.totals:
+        fail("the serve profile did not round-trip through the store")
+    em = Emulator(calib=calibrate(), backend="cuda")
+    table = [row for seg in em.compile(loaded).segments
+             for row in seg.table.tolist()]
+    ci, mi = sum(r[0] for r in table), sum(r[1] for r in table)
+    ck.launches = mk.launches = 0
+    rep = em.emulate(loaded)
+    torch.cuda.synchronize()
+    got = {"burn_tile": ck.launches, "stream_pass": mk.launches}
+    emit("serve", step="replay", backend="cuda", n_samples=rep.n_samples,
+         ttc_s=rep.ttc_s, profiled_wall_s=prof.meta["wall_s"],
+         flops=loaded.totals.flops, compute_iters=ci, memory_iters=mi,
+         launches=got, host_flops_per_cpu_s=host.flops_per_s)
+    if not same_amounts(rep.consumed, loaded.totals):
+        fail(f"serve replay consumed {rep.consumed} != {loaded.totals}")
+    if got != {"burn_tile": ci, "stream_pass": mi}:
+        fail(f"serve replay launched {got}, want {ci} burns, {mi} streams")
+
+    # -- report: full depth, bf16, the kernel against dense attention ------
+    full = build_model(cfg, dataclasses.replace(SERVE_RUN,
+                                                attn_impl="full"))
+    last = {}
+    with torch.inference_mode():
+        for name, m in (("cuda", model), ("full", full)):
+            h = m.forward(params, batch)[0][:, -64:]
+            last[name] = m.logits(params, h).float()
+            if not torch.isfinite(last[name]).all():
+                fail(f"full depth {name}: logits are not finite")
+    agree = (last["cuda"].argmax(-1) == last["full"].argmax(-1)).float()
+    emit("serve", step="full_depth_bf16_report", positions=64,
+         token_agreement=agree.mean().item(),
+         max_abs_logit_diff=(last["cuda"] - last["full"]).abs().max().item(),
+         max_abs_logit=last["full"].abs().max().item())
+
+
+def same_amounts(a, b, rel: float = 1e-12) -> bool:
+    """Field-for-field equality of two ResourceVectors up to float64
+    rounding: ``consumed`` sums collapsed runs (count x amount), a
+    profile's totals sum its samples one by one, and a runtime profile's
+    amounts are not round numbers, so the two sums may differ in the last
+    bits (the JAX package's own test allows 1e-6, tests/test_system.py)."""
+    fa, fb = a.to_dict(), b.to_dict()
+    if fa.keys() != fb.keys():
+        return False
+    for k in fa:
+        x, y = fa[k], fb[k]
+        if isinstance(x, dict):
+            if x.keys() != y.keys() or not all(
+                    math.isclose(x[i], y[i], rel_tol=rel) for i in x):
+                return False
+        elif not math.isclose(x, y, rel_tol=rel):
+            return False
+    return True
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def main() -> None:
@@ -434,6 +790,7 @@ def main() -> None:
     phase_build()
     rows = phase_kernels(torch, np)
     phase_main_path(torch, rows)
+    phase_serve(torch, np, rows)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for row in rows.values():

@@ -36,6 +36,7 @@ _lib = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
+_D = ctypes.c_double
 #: the C interface of the library: name -> (result type, argument types);
 #: the launchers return a ``cudaError_t``, 0 on success
 SIGNATURES = {
@@ -44,6 +45,11 @@ SIGNATURES = {
     # x, out, scratch, n, dtype code, passes, device, stream
     "synapse_stream_pass": (ctypes.c_int,
                             [_P, _P, _P, _I, _I, _I, _I, _P]),
+    # q, k, v, out, BH, BKV, Sq, Sk, hd, dtype code, causal, window (-1 for
+    # none), softcap (0 for none), scale, device, stream
+    "synapse_flash_attention": (ctypes.c_int, [_P, _P, _P, _P, _I, _I, _I,
+                                               _I, _I, _I, _I, _I, _D, _D,
+                                               _I, _P]),
     # x, sink, n, reps, device, stream (a measuring probe, no port)
     "synapse_l2_read": (ctypes.c_int, [_P, _P, _I, _I, _I, _P]),
     "synapse_error_string": (ctypes.c_char_p, [ctypes.c_int]),

@@ -1,0 +1,315 @@
+"""Shared transformer layers: norms, rotary embeddings, attention, MLP.
+
+Prefill attention has two implementations here (``RunConfig.attn_impl``):
+  * ``full`` — dense softmax attention in PyTorch ops; O(S²) memory.
+  * ``cuda`` — the hand-written Hopper kernel
+               (``repro_torch.kernels.flash_attention``), the counterpart of
+               the JAX package's ``pallas``.
+``auto`` keeps the JAX package's rule (``blocked`` above the threshold);
+``blocked`` is not ported yet (``configs.run.BLOCKED_TODO``).
+
+All softmax math is f32 regardless of activation dtype: logits come from
+inputs upcast to f32, the counterpart of ``preferred_element_type=f32``.
+The JAX package's ``shard(...)`` constraints are dropped: without a mesh
+they are no-ops.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.run import BLOCKED_TODO
+from repro_torch.models.params import PDef
+
+NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def def_rmsnorm(d: int) -> Dict[str, PDef]:
+    return {"scale": PDef((d,), ("embed",), init="zeros")}  # (1 + scale) form
+
+
+def rmsnorm(p, x, eps: float = 1e-6):
+    dtype = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    return (y * (1.0 + p["scale"].float())).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings (standard + M-RoPE)
+# ---------------------------------------------------------------------------
+
+def _rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    exp = torch.arange(0, head_dim // 2, dtype=torch.float32,
+                       device=device) / (head_dim // 2)
+    return 1.0 / (theta ** exp)                      # [hd/2]
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               mrope_sections: Optional[Tuple[int, int, int]] = None):
+    """x: [B,S,H,hd]; positions: [B,S] or [3,B,S] for M-RoPE."""
+    hd = x.shape[-1]
+    freqs = _rope_freqs(hd, theta, x.device)         # [hd/2]
+    if mrope_sections is None:
+        angles = positions.float()[..., None] * freqs      # [B,S,hd/2]
+    else:
+        if positions.dim() != 3:
+            raise ValueError("M-RoPE needs [3,B,S] positions (t,h,w)")
+        a = positions.float()[..., None] * freqs          # [3,B,S,hd/2]
+        if sum(mrope_sections) != hd // 2:
+            raise ValueError(f"M-RoPE sections {mrope_sections} must sum "
+                             f"to hd/2 = {hd // 2}")
+        parts = []
+        start = 0
+        for i, s in enumerate(mrope_sections):
+            parts.append(a[i, ..., start:start + s])
+            start += s
+        angles = torch.cat(parts, dim=-1)            # [B,S,hd/2]
+    cos = torch.cos(angles)[:, :, None, :]           # [B,S,1,hd/2]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention core
+# ---------------------------------------------------------------------------
+
+def _softcap(logits, cap: Optional[float]):
+    if cap is None:
+        return logits
+    return cap * torch.tanh(logits / cap)
+
+
+def _mask_bias(q_pos, k_pos, *, causal: bool, window: Optional[int],
+               local_flag=None, kv_valid_len=None):
+    """Additive f32 mask bias of shape broadcastable to [.., Sq, Sk].
+
+    ``local_flag``: a bool (or 0-d bool tensor); when given, the window
+    constraint only applies where the flag is True.
+    """
+    qp = q_pos[..., :, None]
+    kp = k_pos[..., None, :]
+    if causal:
+        ok = kp <= qp
+    else:
+        ok = torch.ones(torch.broadcast_shapes(qp.shape, kp.shape),
+                        dtype=torch.bool, device=qp.device)
+    if window is not None:
+        win_ok = qp - kp < window
+        if local_flag is not None:
+            win_ok = win_ok | ~torch.as_tensor(local_flag, device=qp.device)
+        ok = ok & win_ok
+    if kv_valid_len is not None:
+        ok = ok & (kp < kv_valid_len)
+    return torch.zeros(ok.shape, dtype=torch.float32,
+                       device=ok.device).masked_fill_(~ok, NEG_INF)
+
+
+def attend_full(q, k, v, *, q_pos, k_pos, causal, window, softcap,
+                local_flag=None, kv_valid_len=None):
+    """q:[B,Sq,Hk,G,hd] grouped query; k,v:[B,Sk,Hk,hd]."""
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float()) * scale
+    logits = _softcap(logits, softcap)
+    bias = _mask_bias(q_pos, k_pos, causal=causal, window=window,
+                      local_flag=local_flag,
+                      kv_valid_len=kv_valid_len)     # [Sq,Sk] or [B,Sq,Sk]
+    if bias.dim() == 2:
+        bias = bias[None, None, None]
+    else:
+        bias = bias[:, None, None]
+    logits = logits + bias
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+
+
+def attend_decode(q, k_cache, v_cache, *, cur_pos, window, softcap,
+                  local_flag=None):
+    """Single-token decode: q:[B,1,Hk,G,hd]; caches [B,T,Hk,hd]; cur_pos [B]."""
+    scale = q.shape[-1] ** -0.5
+    T = k_cache.shape[1]
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", q.float(),
+                          k_cache.float()) * scale
+    logits = _softcap(logits, softcap)
+    kp = torch.arange(T, device=q.device)[None, :]   # [1,T]
+    cp = cur_pos[:, None]                            # [B,1]
+    ok = kp <= cp
+    if window is not None:
+        win_ok = cp - kp < window
+        if local_flag is not None:
+            win_ok = win_ok | ~torch.as_tensor(local_flag, device=q.device)
+        ok = ok & win_ok
+    bias = torch.zeros(ok.shape, dtype=torch.float32,
+                       device=q.device).masked_fill_(~ok, NEG_INF)
+    logits = logits + bias[:, None, None, None, :]
+    probs = torch.softmax(logits, dim=-1).to(v_cache.dtype)
+    return torch.einsum("bhgqk,bkhd->bqhgd", probs, v_cache)
+
+
+# ---------------------------------------------------------------------------
+# Attention module (projections + cache plumbing)
+# ---------------------------------------------------------------------------
+
+def def_attention(cfg: ModelConfig) -> Dict[str, Any]:
+    d, hq, hk, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    p: Dict[str, Any] = {
+        "wq": PDef((d, hq, hd), ("embed", "heads", "head_dim"), init="scaled"),
+        "wk": PDef((d, hk, hd), ("embed", "kv_heads", "head_dim"), init="scaled"),
+        "wv": PDef((d, hk, hd), ("embed", "kv_heads", "head_dim"), init="scaled"),
+        "wo": PDef((hq, hd, d), ("heads", "head_dim", "embed"), init="scaled"),
+    }
+    if cfg.attn.qkv_bias:
+        p["bq"] = PDef((hq, hd), ("heads", "head_dim"), init="zeros")
+        p["bk"] = PDef((hk, hd), ("kv_heads", "head_dim"), init="zeros")
+        p["bv"] = PDef((hk, hd), ("kv_heads", "head_dim"), init="zeros")
+    return p
+
+
+class AttnRun(NamedTuple):
+    impl: str = "auto"          # auto | full | blocked | cuda
+    block_q: int = 512
+    block_kv: int = 1024
+    blocked_threshold: int = 2048
+
+
+def _project(x, w):
+    """x [B,S,D] @ w [D,H,hd] -> [B,S,H,hd]."""
+    B, S, _ = x.shape
+    return (x @ w.to(x.dtype).flatten(1)).view(B, S, *w.shape[1:])
+
+
+def attention(p, x, *, cfg: ModelConfig, positions, is_local=False,
+              run: AttnRun = AttnRun(),
+              cache: Optional[Dict[str, torch.Tensor]] = None,
+              decode: bool = False, causal: bool = True):
+    """Returns (out [B,S,D], updated cache or None).
+
+    * train/prefill: causal self-attention over x; fills cache when given.
+    * decode: x is [B,1,D]; attends over cache; ``cache["pos"]`` is [B].
+      The new K/V entries are written into the given cache tensors in place.
+    """
+    B, S, D = x.shape
+    hq, hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    G = hq // hk
+    a = cfg.attn
+    if isinstance(is_local, bool):                 # static layer pattern
+        window, local_flag = (a.sliding_window if is_local else None), None
+    else:                                          # a flag tensor
+        window, local_flag = a.sliding_window, is_local
+
+    q = _project(x, p["wq"])
+    k = _project(x, p["wk"])
+    v = _project(x, p["wv"])
+    if a.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+
+    rope_pos = positions
+    if a.mrope_sections is not None and positions.dim() == 2:
+        rope_pos = positions[None].expand((3,) + tuple(positions.shape))
+    q = apply_rope(q, rope_pos, a.rope_theta, a.mrope_sections)
+    k = apply_rope(k, rope_pos, a.rope_theta, a.mrope_sections)
+    qg = q.reshape(B, S, hk, G, hd)
+
+    if decode:
+        if cache is None or S != 1:
+            raise ValueError("decode attends one token against a cache")
+        pos = cache["pos"]                                     # [B]
+        k_cache = _cache_write(cache["k"], k, pos)
+        v_cache = _cache_write(cache["v"], v, pos)
+        out = attend_decode(qg, k_cache, v_cache, cur_pos=pos,
+                            window=window, local_flag=local_flag,
+                            softcap=a.logit_softcap)
+        new_cache = {"k": k_cache, "v": v_cache, "pos": pos + 1}
+    else:
+        impl = run.impl
+        if impl == "auto":
+            impl = "blocked" if S > run.blocked_threshold else "full"
+        # Masks follow token order (RoPE positions may repeat, e.g. M-RoPE).
+        q_pos = torch.arange(S, device=x.device)
+        if impl == "full":
+            out = attend_full(qg, k, v, q_pos=q_pos, k_pos=q_pos,
+                              causal=causal, window=window,
+                              local_flag=local_flag,
+                              softcap=a.logit_softcap)
+        elif impl == "cuda":
+            from repro_torch.kernels import flash_attention as fa
+            if local_flag is not None:
+                raise ValueError("attn_impl='cuda' takes a static window: "
+                                 "pass is_local as a bool")
+            out = fa.ops.flash_attention_grouped(
+                qg, k, v, causal=True, window=window,
+                softcap=a.logit_softcap,
+                block_q=run.block_q, block_kv=run.block_kv)
+        elif impl == "blocked":
+            raise NotImplementedError(BLOCKED_TODO)
+        else:
+            raise ValueError(f"unknown attention impl {impl!r}")
+        new_cache = None
+        if cache is not None:  # prefill fills the cache
+            T = cache["k"].shape[1]
+            new_cache = {"k": _pad_to(k, T).to(cache["k"].dtype),
+                         "v": _pad_to(v, T).to(cache["v"].dtype),
+                         "pos": torch.full((B,), S, dtype=torch.int32,
+                                           device=x.device)}
+
+    out = out.reshape(B, S, hq * hd)
+    out = out @ p["wo"].to(x.dtype).reshape(hq * hd, D)
+    return out, new_cache
+
+
+def _cache_write(cache_arr, new_kv, pos):
+    """Write [B,1,H,hd] into [B,T,H,hd] at per-batch position ``pos``, in
+    place, and return ``cache_arr``.
+
+    Updating the cache in place saves a cache-sized copy a layer and a step
+    (the JAX package gets the same from XLA's in-place scatter into the
+    donated buffer).  As the JAX package's ``mode="drop"`` scatter does, a
+    write at ``pos >= T`` is skipped, not an index error."""
+    B, T = cache_arr.shape[:2]
+    upd = new_kv.to(cache_arr.dtype)[:, 0]                    # [B,H,hd]
+    keep = pos < T
+    # no boolean indexing, which would wait for the device: a dropped row
+    # writes its own current entry back
+    rows = torch.arange(B, device=cache_arr.device)
+    idx = torch.where(keep, pos, 0).long()
+    cache_arr[rows, idx] = torch.where(keep[:, None, None], upd,
+                                       cache_arr[rows, idx])
+    return cache_arr
+
+
+def _pad_to(x, T):
+    S = x.shape[1]
+    if S == T:
+        return x
+    if S > T:
+        raise ValueError(f"sequence of {S} does not fit a cache of {T}")
+    return F.pad(x, (0, 0) * (x.dim() - 2) + (0, T - S))
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU)
+# ---------------------------------------------------------------------------
+
+def def_mlp(d: int, f: int) -> Dict[str, PDef]:
+    return {
+        "wi_gate": PDef((d, f), ("embed", "ff"), init="scaled"),
+        "wi_up": PDef((d, f), ("embed", "ff"), init="scaled"),
+        "wo": PDef((f, d), ("ff", "embed"), init="scaled"),
+    }
+
+
+def mlp(p, x):
+    h = F.silu(x @ p["wi_gate"].to(x.dtype)) * (x @ p["wi_up"].to(x.dtype))
+    return h @ p["wo"].to(x.dtype)

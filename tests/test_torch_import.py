@@ -31,6 +31,24 @@ SLICE = [
     "repro_torch.kernels.memory_atom.ref",
     "repro_torch.scenarios", "repro_torch.scenarios.base",
     "repro_torch.scenarios.serving",
+    "repro_torch.kernels.flash_attention",
+    "repro_torch.kernels.flash_attention.kernel",
+    "repro_torch.kernels.flash_attention.ops",
+    "repro_torch.kernels.flash_attention.ref",
+    "repro_torch.configs", "repro_torch.configs.base",
+    "repro_torch.configs.run", "repro_torch.configs.gemma2_2b",
+    "repro_torch.configs.hymba_1_5b",
+    "repro_torch.configs.llama4_scout_17b_a16e",
+    "repro_torch.configs.mamba2_780m",
+    "repro_torch.configs.moonshot_v1_16b_a3b",
+    "repro_torch.configs.qwen2_1_5b", "repro_torch.configs.qwen2_72b",
+    "repro_torch.configs.qwen2_7b", "repro_torch.configs.qwen2_vl_2b",
+    "repro_torch.configs.seamless_m4t_medium",
+    "repro_torch.models", "repro_torch.models.params",
+    "repro_torch.models.layers", "repro_torch.models.transformer",
+    "repro_torch.models.model_zoo",
+    "repro_torch.serve", "repro_torch.serve.step",
+    "repro_torch.serve.engine",
 ]
 
 _CHILD = """
@@ -78,10 +96,20 @@ def test_port_sources_name_no_jax_or_repro():
 def test_default_device_raises_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.configs.run import SERVE_RUN
     from repro_torch.core import (Emulator, HostCalibration, calibrate)
     from repro_torch.core.atoms import ComputeAtom, MemoryAtom
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.params import from_numpy
+    from repro_torch.serve.engine import Engine
     cal = HostCalibration(1e9, 1e9, 1e8, 1e8)
-    for make in (lambda: Emulator(),
+    model = build_model(reduced_config(get_config("qwen2-7b")), SERVE_RUN)
+    for make in (lambda: model.init(torch.Generator()),
+                 lambda: model.init_cache(1, 8),
+                 lambda: from_numpy({}),
+                 lambda: Engine(model, {}),
+                 lambda: Emulator(),
                  lambda: Emulator(calib=cal),
                  lambda: Emulator(calib=cal, backend="cuda"),
                  lambda: ComputeAtom(cal),

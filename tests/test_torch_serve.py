@@ -1,0 +1,320 @@
+"""The port's serving path of the dense zoo against the JAX package's.
+
+Weights are the JAX package's (``model.init(jax.random.key(0))``), carried
+across by ``from_numpy``; token inputs are seeded numpy arrays given to
+both.  Everything runs in float32 on the CPU at ``reduced_config`` size.
+The port's ``"cuda"`` attention runs its kernel's plain version here, held
+to the JAX package's ``"pallas"`` (interpret mode); ``"full"`` to
+``"full"``.  Tolerance 1e-4 on hidden states, logits and caches: the two
+frameworks sum in other orders (1.7e-5 is the largest gap seen at this
+size); greedy tokens must be identical.
+"""
+import dataclasses
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as j_get_config, list_archs
+from repro.configs import reduced_config as j_reduced
+from repro.configs.run import RunConfig as JRun
+from repro.models import layers as jl
+from repro.models import transformer as jtr
+from repro.models.model_zoo import build_model as j_build
+from repro.models.params import count_params as j_count
+from repro.serve.engine import Engine as JEngine, Request as JRequest
+from repro.serve.step import make_decode_step as j_decode_step
+from repro.serve.step import make_prefill_step as j_prefill_step
+from repro_torch.configs import get_config, list_archs as t_list_archs
+from repro_torch.configs import reduced_config
+from repro_torch.configs.run import SERVE_RUN, TRAIN_RUN, RunConfig
+from repro_torch.models import layers as tl
+from repro_torch.models import transformer as ttr
+from repro_torch.models.model_zoo import build_model
+from repro_torch.models.params import from_numpy, init_params
+from repro_torch.serve.engine import Engine, Request
+from repro_torch.serve.step import make_decode_step, make_prefill_step
+
+TOL = 1e-4
+ARCHS = ["qwen2-7b", "gemma2-2b"]
+IMPLS = [("full", "full"), ("cuda", "pallas")]      # (port, JAX package)
+F32 = dict(param_dtype="float32", compute_dtype="float32",
+           cache_dtype="float32")
+
+_MODELS = {}
+
+
+def models(arch, impl="full"):
+    """(JAX model, JAX params, port model, port params), cached."""
+    key = (arch, impl)
+    if key not in _MODELS:
+        j_impl = dict(IMPLS)[impl]
+        jm = j_build(j_reduced(j_get_config(arch)),
+                     JRun(attn_impl=j_impl, remat="none", **F32))
+        tm = build_model(reduced_config(get_config(arch)),
+                         RunConfig(attn_impl=impl, **F32))
+        jp = jm.init(jax.random.key(0))
+        tp = from_numpy(jax.tree.map(np.asarray, jp), torch.float32, "cpu")
+        _MODELS[key] = (jm, jp, tm, tp)
+    return _MODELS[key]
+
+
+def close(got, want, tol=TOL):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=tol,
+                               rtol=tol)
+
+
+def tokens(B, S, seed=0, vocab=256):
+    return np.random.default_rng(seed).integers(0, vocab, (B, S)).astype(
+        np.int32)
+
+
+# ---------------------------------------------------------------------------
+# configs and parameters
+# ---------------------------------------------------------------------------
+
+def test_config_registry_and_reduced_configs_are_the_references():
+    assert t_list_archs() == list_archs()
+    for name in list_archs():
+        assert get_config(name).to_json() == j_get_config(name).to_json()
+        assert reduced_config(get_config(name)).to_json() == \
+            j_reduced(j_get_config(name)).to_json()
+
+
+def test_run_config_names_the_ports_attention_impls():
+    assert SERVE_RUN.pdtype == torch.bfloat16
+    fields = {f.name for f in dataclasses.fields(RunConfig)}
+    assert fields == {"param_dtype", "compute_dtype", "cache_dtype",
+                      "attn_impl", "block_q", "block_kv", "blocked_threshold"}
+    assert fields <= {f.name for f in dataclasses.fields(JRun)}
+    assert TRAIN_RUN.pdtype == torch.float32
+    assert TRAIN_RUN.cdtype == TRAIN_RUN.kvdtype == torch.bfloat16
+    for impl in ("auto", "full", "blocked", "cuda"):
+        assert dataclasses.replace(SERVE_RUN, attn_impl=impl).attn_impl == \
+            impl
+    with pytest.raises(ValueError, match="'cuda'"):
+        RunConfig(attn_impl="pallas")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_from_numpy_keeps_keys_shapes_and_values(arch):
+    jm, jp, tm, tp = models(arch)
+    flat_j = jax.tree_util.tree_flatten_with_path(jp)[0]
+    assert len(flat_j) == len(jax.tree.leaves(tp))
+    for path, leaf in flat_j:
+        t = tp
+        for p in path:
+            t = t[p.key]
+        assert t.dtype == torch.float32 and tuple(t.shape) == leaf.shape
+        assert np.array_equal(t.numpy(), np.asarray(leaf))
+    assert tm.num_params() == j_count(jm.pdefs)
+    bf = from_numpy({"w": np.asarray(jnp.ones((2, 3), jnp.bfloat16))},
+                    device="cpu")
+    assert bf["w"].dtype == torch.bfloat16
+
+
+def test_init_params_follows_the_references_initializers():
+    tm = build_model(reduced_config(get_config("qwen2-7b")), SERVE_RUN)
+    p = tm.init(torch.Generator().manual_seed(0), device="cpu")
+    assert p["layers"]["ln_attn"]["scale"].abs().sum() == 0       # zeros
+    assert p["layers"]["attn"]["bq"].abs().sum() == 0
+    assert p["embed"].dtype == torch.bfloat16
+    L = tm.cfg.num_layers                 # stacked: fan-in is the layer dim
+    assert abs(p["layers"]["mlp"]["wo"].float().std().item()
+               - L ** -0.5) < 0.05
+    assert abs(p["embed"].float().std().item() - 0.02) < 0.002
+    again = tm.init(torch.Generator().manual_seed(0), device="cpu")
+    assert torch.equal(p["lm_head"], again["lm_head"])
+    on_card = types.SimpleNamespace(device=torch.device("cuda", 0))
+    with pytest.raises(ValueError, match="generator"):
+        init_params(tm.pdefs, on_card, device="cpu")
+
+
+@pytest.mark.parametrize("family,arch", [
+    ("moe", "llama4-scout-17b-a16e"), ("vlm", "qwen2-vl-2b"),
+    ("ssm", "mamba2-780m"), ("hybrid", "hymba-1.5b"),
+    ("encdec", "seamless-m4t-medium")])
+def test_build_model_names_the_roadmap_item_for_other_families(family, arch):
+    cfg = get_config(arch)
+    assert cfg.family == family
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
+        build_model(cfg, SERVE_RUN)
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_layer_plan_and_flags_are_the_references(arch):
+    t_cfg, j_cfg = get_config(arch), j_get_config(arch)
+    assert ttr.layer_plan(t_cfg) == jtr.layer_plan(j_cfg)
+    assert np.array_equal(ttr.layer_flags(t_cfg), jtr.layer_flags(j_cfg))
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+
+def test_rmsnorm_matches():
+    rng = np.random.default_rng(1)
+    x = (rng.standard_normal((2, 5, 64)) * 3).astype(np.float32)
+    scale = rng.standard_normal(64).astype(np.float32) * 0.1
+    got = tl.rmsnorm({"scale": torch.from_numpy(scale)}, torch.from_numpy(x),
+                     1e-6)
+    close(got, jl.rmsnorm({"scale": jnp.asarray(scale)}, jnp.asarray(x),
+                          1e-6), 1e-6)
+
+
+@pytest.mark.parametrize("mrope", [None, (2, 3, 3)])
+def test_apply_rope_matches(mrope):
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((2, 6, 3, 16)).astype(np.float32)
+    shape = (2, 6) if mrope is None else (3, 2, 6)
+    pos = rng.integers(0, 50, shape).astype(np.int32)
+    got = tl.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), 1e4,
+                        mrope)
+    close(got, jl.apply_rope(jnp.asarray(x), jnp.asarray(pos), 1e4, mrope),
+          1e-5)
+
+
+def test_mrope_of_text_positions_is_rope():
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((1, 5, 2, 16)).astype(
+        np.float32))
+    pos = torch.arange(5)[None]
+    close(tl.apply_rope(x, pos[None].expand(3, 1, 5), 1e4, (2, 3, 3)),
+          tl.apply_rope(x, pos, 1e4), 1e-6)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("is_local", [False, True])
+@pytest.mark.parametrize("impl", ["full", "cuda"])
+def test_attention_prefill_and_decode_match(arch, is_local, impl):
+    jm, jp, tm, tp = models(arch, impl)
+    cfg, j_cfg = tm.cfg, jm.cfg
+    j_run = jl.AttnRun(impl=dict(IMPLS)[impl])
+    t_run = tl.AttnRun(impl=impl)
+    pl_j = jax.tree.map(lambda a: a[0], jp["layers"]["attn"])
+    pl_t = {k: v[0] for k, v in tp["layers"]["attn"].items()}
+    B, S, T = 2, 12, 16
+    x = np.random.default_rng(4).standard_normal(
+        (B, S, cfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S))
+    jc = jax.tree.map(lambda c: c[0], jm.init_cache(B, T)["attn"])
+    tc = {k: c[0] for k, c in tm.init_cache(B, T, device="cpu")["attn"]
+          .items()}
+    j_out, j_cache = jl.attention(pl_j, jnp.asarray(x), cfg=j_cfg,
+                                  positions=jnp.asarray(pos),
+                                  is_local=is_local, run=j_run, cache=jc)
+    t_out, t_cache = tl.attention(pl_t, torch.from_numpy(x), cfg=cfg,
+                                  positions=torch.from_numpy(pos.copy()),
+                                  is_local=is_local, run=t_run, cache=tc)
+    close(t_out, j_out)
+    for k in ("k", "v", "pos"):
+        close(t_cache[k], j_cache[k])
+    x1 = x[:, -1:] * 0.5
+    j_out, j_cache = jl.attention(pl_j, jnp.asarray(x1), cfg=j_cfg,
+                                  positions=j_cache["pos"][:, None],
+                                  is_local=is_local, run=j_run,
+                                  cache=j_cache, decode=True)
+    t_out, t_cache = tl.attention(pl_t, torch.from_numpy(x1), cfg=cfg,
+                                  positions=t_cache["pos"][:, None].clone(),
+                                  is_local=is_local, run=t_run,
+                                  cache=t_cache, decode=True)
+    close(t_out, j_out)
+    for k in ("k", "v", "pos"):
+        close(t_cache[k], j_cache[k])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window,local_flag", [
+    (None, None), (3, None), (3, True), (3, False)])
+@pytest.mark.parametrize("kv_valid_len", [None, 5])
+def test_mask_bias_matches(causal, window, local_flag, kv_valid_len):
+    kw = dict(causal=causal, window=window, local_flag=local_flag,
+              kv_valid_len=kv_valid_len)
+    got = tl._mask_bias(torch.arange(7), torch.arange(9), **kw)
+    want = jl._mask_bias(jnp.arange(7), jnp.arange(9), **kw)
+    assert got.dtype == torch.float32
+    assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+def test_cache_write_drops_out_of_range_writes():
+    B, T, H, hd = 4, 5, 2, 3
+    rng = np.random.default_rng(5)
+    cache = rng.standard_normal((B, T, H, hd)).astype(np.float32)
+    new = rng.standard_normal((B, 1, H, hd)).astype(np.float32)
+    pos = np.array([0, 4, 5, 9], np.int32)           # the last two drop
+    want = np.asarray(jl._cache_write(jnp.asarray(cache), jnp.asarray(new),
+                                      jnp.asarray(pos)))
+    t_cache = torch.from_numpy(cache.copy())
+    got = tl._cache_write(t_cache, torch.from_numpy(new),
+                          torch.from_numpy(pos))
+    assert got is t_cache                             # written in place
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(got.numpy()[2:], cache[2:])
+
+
+# ---------------------------------------------------------------------------
+# the model and the serving path
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("impl", ["full", "cuda"])
+def test_forward_prefill_cache_and_decode_match(arch, impl):
+    jm, jp, tm, tp = models(arch, impl)
+    B, S, T = 2, 16, 24
+    toks = tokens(B, S, seed=6)
+    j_hidden, _, _ = jm.forward(jp, {"tokens": jnp.asarray(toks)})
+    t_hidden, _, _ = tm.forward(tp, {"tokens": torch.from_numpy(toks)})
+    close(t_hidden, j_hidden)
+    close(tm.logits(tp, t_hidden), jm.logits(jp, j_hidden))
+
+    j_tok, j_cache = j_prefill_step(jm, T)(jp, {"tokens": jnp.asarray(toks)})
+    t_tok, t_cache = make_prefill_step(tm, T)(
+        tp, {"tokens": torch.from_numpy(toks)})
+    assert np.array_equal(t_tok.numpy(), np.asarray(j_tok))
+    assert t_tok.dtype == torch.int32
+    for k in ("k", "v", "pos"):
+        assert tuple(t_cache["attn"][k].shape) == j_cache["attn"][k].shape
+        close(t_cache["attn"][k], j_cache["attn"][k])
+
+    j_tok, j_cache = j_decode_step(jm)(jp, j_tok, j_cache)
+    t_tok, t_cache = make_decode_step(tm)(tp, t_tok, t_cache)
+    assert np.array_equal(t_tok.numpy(), np.asarray(j_tok))
+    for k in ("k", "v", "pos"):
+        close(t_cache["attn"][k], j_cache["attn"][k])
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("impl", ["full", "cuda"])
+def test_engine_serve_greedy_tokens_are_the_references(arch, impl):
+    jm, jp, tm, tp = models(arch, impl)
+    rng = np.random.default_rng(7)
+    spec = [(list(rng.integers(0, 256, n)), m)
+            for n, m in ((5, 6), (9, 4), (3, 8), (7, 5), (4, 3))]
+    j_reqs = JEngine(jm, jp, batch_slots=4, max_len=32).serve(
+        [JRequest(prompt=p, max_new_tokens=m) for p, m in spec])
+    t_reqs = Engine(tm, tp, batch_slots=4, max_len=32, device="cpu").serve(
+        [Request(prompt=p, max_new_tokens=m) for p, m in spec])
+    assert [r.out_tokens for r in t_reqs] == [r.out_tokens for r in j_reqs]
+    assert all(r.done for r in t_reqs)
+    assert [len(r.out_tokens) for r in t_reqs] == [m for _, m in spec]
+
+
+def test_attention_impls_agree_within_the_port():
+    _, _, tm, tp = models("qwen2-7b", "full")
+    _, _, tc, _ = models("qwen2-7b", "cuda")
+    toks = torch.from_numpy(tokens(2, 16, seed=8))
+    h_full, _, _ = tm.forward(tp, {"tokens": toks})
+    h_cuda, _, _ = tc.forward(tp, {"tokens": toks})
+    close(h_cuda, h_full, 2e-5)
+
+
+def test_blocked_and_auto_above_the_threshold_name_the_roadmap_item():
+    for run in (RunConfig(attn_impl="blocked", **F32),
+                RunConfig(attn_impl="auto", blocked_threshold=8, **F32)):
+        tm = build_model(reduced_config(get_config("qwen2-7b")), run)
+        tp = tm.init(torch.Generator().manual_seed(0), device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            tm.forward(tp, {"tokens": torch.zeros((1, 9), dtype=torch.int32)})
