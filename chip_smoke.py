@@ -6,7 +6,10 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
 ``build/repro_torch``), then runs these phases, each printing JSON lines:
 
   device     the card (``nvidia-smi`` name and power limit), torch and CUDA
-  build      the kernel library's build seconds and ptxas resource lines
+  build      the kernel library's build seconds and, for each kernel
+             symbol, its ptxas register and spill lines and the HGMMA
+             (tensor-core) instructions in its SASS; fails if the bf16
+             flash kernel has none
   kernels    each kernel against its plain PyTorch version on the card, at
              several shapes, with its device time, its plain version's, a
              PyTorch library call's (each a CUDA graph's replay) and the
@@ -17,8 +20,9 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
   main_path  the emulator end to end: a Qwen2-7B-sized ``serving_traffic``
              profile is stored, reloaded, and emulated with the fused
              ``"torch"`` backend and the per-sample ``"cuda"`` (kernel)
-             backend; dispatches and kernel launches are checked against
-             the schedule, the device's busy share is read from the
+             backend; dispatches, burned iterations and kernel launches
+             (one burn a compute leg) are checked against the schedule,
+             the device's busy share is read from the
              launches and the device time of each, and ``predict`` is
              printed beside
   serve      the dense zoo's serving path: Qwen2-7B's widths cut to 2
@@ -41,6 +45,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -59,12 +64,20 @@ L2_BYTES = 50e6
 
 BURN_TOL = 1e-5            # atol and rtol: exact float32 on both sides
 BF16_RTOL = 1e-2           # the JAX package's own bf16 stream tolerance
+# the bf16 flash kernel of csrc/flash_attention_sm90.cu, in mangled symbols
+BF16_FLASH_SYMBOL = "fa_sm90"
 # flash attention, atol and rtol: the JAX package's own (tests/test_kernels.py)
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # final hidden states of the depth-cut model, "cuda" against "full" in
 # float32: the two sum in other orders (1.7e-5 seen on the CPU at the
 # reduced size); 1e-4 leaves room for 512 tokens at full width
 DEPTH_CUT_TOL = 1e-4
+# burn_tile cases (tile, iterations); the tiles that the C function runs in
+# one launch (csrc/compute_atom.cu), and others that run one launch an
+# iteration
+BURN_ONE_LAUNCH_TILES = (64, 128, 256)
+BURN_CASES = [(t, (1, 17, 257)) for t in BURN_ONE_LAUNCH_TILES] + [
+    (32, (1, 17)), (320, (1, 17))]
 
 # (BH, BKV, Sq, Sk, hd, block_q, block_kv, causal, window, softcap): the
 # JAX package's SWEEP (tests/test_kernels.py), Gemma2's head dim with its
@@ -210,6 +223,39 @@ def phase_device(torch):
          cuda=torch.version.cuda, python=sys.version.split()[0])
 
 
+def kernel_resources(log_text: str) -> dict:
+    """ptxas's register and spill lines of each kernel symbol, from the
+    ``-Xptxas -v`` output in the build log."""
+    out, name = {}, None
+    for ln in log_text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", ln)
+        if m:
+            name = m.group(1)
+        elif name and re.search(r"Used \d+ registers|bytes spill", ln):
+            out.setdefault(name, []).append(ln.strip())
+    return out
+
+
+def sass_hgmma_counts(library) -> dict:
+    """HGMMA instructions in each kernel's SASS (``cuobjdump -sass``)."""
+    from repro_torch.kernels import build
+    tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    res = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                         text=True, timeout=300)
+    if res.returncode != 0:
+        fail(f"cuobjdump -sass failed: {res.stderr.strip()[-2000:]}")
+    counts, name = {}, None
+    for ln in res.stdout.splitlines():
+        m = re.match(r"\s*Function : (\S+)", ln)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name and "HGMMA" in ln:
+            counts[name] += 1
+    return counts
+
+
 def phase_build():
     from repro_torch.kernels import build
     existed = build.library_path().exists()
@@ -217,12 +263,21 @@ def phase_build():
     build.load()
     seconds = time.perf_counter() - t0
     log = build.BUILD_DIR / build.LOG_NAME
-    ptxas = []
-    if log.exists():
-        ptxas = [ln.strip() for ln in log.read_text().splitlines()
-                 if "registers" in ln or "spill" in ln]
+    text = log.read_text() if log.exists() else ""
+    resources = kernel_resources(text)
+    hgmma = sass_hgmma_counts(build.library_path())
+    kernels = {name: {"ptxas": resources.get(name, []), "hgmma": n}
+               for name, n in sorted(hgmma.items())}
     emit("build", seconds=seconds, built=not existed,
-         library=os.path.relpath(build.library_path(), ROOT), ptxas=ptxas)
+         library=os.path.relpath(build.library_path(), ROOT),
+         kernels=kernels, notes=[ln.strip() for ln in text.splitlines()
+                                 if re.search(r"(?i)warning|\(C\d{4}\)", ln)])
+    # the bf16 flash kernel's template instances must run on the tensor
+    # cores
+    tensor_core = {k: n for k, n in hgmma.items() if BF16_FLASH_SYMBOL in k}
+    if not tensor_core or 0 in tensor_core.values():
+        fail(f"the bf16 flash kernel has no HGMMA instruction: "
+             f"{tensor_core or 'no symbol ' + BF16_FLASH_SYMBOL}")
 
 
 def phase_kernels(torch, np):
@@ -233,28 +288,36 @@ def phase_kernels(torch, np):
     dev = torch.device("cuda")
     rows = {}
 
-    # -- burn_tile: exact float32 against the plain matmul chain ----------
+    # -- burn_tile: exact float32 against the plain matmul chain; tiles 64,
+    # 128 and 256 run a burn in one cluster launch, 32 and 320 one launch
+    # an iteration (the C function chooses by shape)
     burn_err = 0.0
-    for tile in (64, 128, 256):
+    for tile, iters_list in BURN_CASES:
         x = torch.from_numpy(
             (rng.standard_normal((tile, tile)) * 0.1).astype(np.float32)
         ).to(dev)
-        for iters in (1, 17, 257):
+        for iters in iters_list:
+            before = (ck.launches, ck.iterations)
             got = ck.burn_tile(x, iters=iters)
+            counted = (ck.launches - before[0], ck.iterations - before[1])
             want = cref.burn_tile(x, iters=iters)
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
             ok = bool(torch.isfinite(got).all()) and torch.allclose(
                 got, want, atol=BURN_TOL, rtol=BURN_TOL)
+            one_launch = tile in BURN_ONE_LAUNCH_TILES
             emit("kernels", kernel="burn_tile", tile=tile, iters=iters,
-                 max_abs_err=err, ok=ok)
+                 launches=counted[0], max_abs_err=err, ok=ok)
             if not ok:
                 fail(f"burn_tile tile={tile} iters={iters}: max abs err "
                      f"{err} beyond atol=rtol={BURN_TOL}")
+            if counted != (1 if one_launch else iters, iters):
+                fail(f"burn_tile tile={tile} iters={iters}: counted "
+                     f"(launches, iterations) {counted}")
             burn_err = max(burn_err, err)
 
     # timed at the main path's shape: the atom's operand, tile 256, per
-    # iteration (one launch), over a 1000-iteration burn captured whole
+    # iteration, over a 1000-iteration burn (one launch) captured whole
     tile, n_it = 256, 1000
     x = torch.eye(tile, dtype=torch.float32, device=dev) * 0.5
     bias = torch.full_like(x, 0.25)
@@ -276,9 +339,15 @@ def phase_kernels(torch, np):
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "bound_rate": "float32 FMA, datasheet",
         "library_ms": graph_ms(lambda: chain(library_step, x, n_it), n_it),
-        "unit": "one iteration (one launch) at tile 256",
-        "timing": "device time: CUDA graph of 1000 iterations",
+        "unit": "one iteration of a 1000-iteration burn (one launch) at "
+                "tile 256",
+        "timing": "device time: CUDA graph of the one launch; plain and "
+                  "library: of 1000 iterations",
     }
+    rows["burn_tile"]["share_of_bound"] = (rows["burn_tile"]["bound_ms"]
+                                           / rows["burn_tile"]["ms"])
+    emit("kernels", kernel="burn_tile", **{
+        k_: v_ for k_, v_ in rows["burn_tile"].items() if k_ != "name"})
 
     # -- stream_pass: f32 bitwise, bf16 to the JAX package's rtol ---------
     stream_err = 0.0
@@ -423,7 +492,10 @@ def phase_flash(torch, np, rng):
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BPS
     row = {
         "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention.cu",
+        # the bf16 kernel timed here; float32 runs the SIMT kernel of
+        # csrc/flash_attention.cu, which also holds the C entry point
+        "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
+        "float32_source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:75",
         "max_abs_err": flash_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(t_ops, t_bytes) * 1e3,
@@ -497,20 +569,26 @@ def phase_main_path(torch, rows):
                  for row in s.table.tolist()]
         ci = sum(r[0] for r in table)
         mi = sum(r[1] for r in table)
-        ck.launches = mk.launches = 0
+        ck.launches = ck.iterations = mk.launches = 0
         t0 = time.perf_counter()
         rep = em.emulate(loaded)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         got = {"burn_tile": ck.launches, "stream_pass": mk.launches}
+        burned = ck.iterations
         if backend == "torch":
             want_mode, want_disp = "fused", 1
             want_launch = {"burn_tile": 0, "stream_pass": 0}
+            want_burned = 0
         else:
             want_mode = "per_sample"
             want_disp = sum((r[0] > 0) + (r[1] > 0) for r in table)
-            want_launch = {"burn_tile": ci, "stream_pass": mi}
+            # one burn launch a compute leg, burning the leg's iterations
+            want_launch = {"burn_tile": compute_legs(table),
+                           "stream_pass": mi}
+            want_burned = ci
             launches = got
+            rows["burn_tile"]["iterations"] = burned
         # kernels run on one stream and do not overlap: the device is busy
         # for the iterations times the device time of each
         busy_s = (ci * per_iter_ms[backend][0]
@@ -518,6 +596,7 @@ def phase_main_path(torch, rows):
         emit("main_path", step="emulate", backend=backend, mode=rep.mode,
              ttc_s=rep.ttc_s, wall_s=wall, n_samples=rep.n_samples,
              n_dispatches=rep.n_dispatches, compute_iters=ci,
+             compute_legs=compute_legs(table), burned_iters=burned,
              memory_iters=mi, launches=got, device_busy_s=busy_s,
              busy_share=busy_s / rep.ttc_s,
              achieved_flops_per_s=rep.consumed.flops / rep.ttc_s,
@@ -528,6 +607,8 @@ def phase_main_path(torch, rows):
         if rep.mode != want_mode or rep.n_dispatches != want_disp:
             fail(f"{backend}: mode {rep.mode} / {rep.n_dispatches} "
                  f"dispatches, want {want_mode} / {want_disp}")
+        if burned != want_burned:
+            fail(f"{backend}: burned {burned} iterations, want {want_burned}")
         if got != want_launch or (backend == "cuda" and 0 in got.values()):
             fail(f"{backend}: kernel launches {got}, want {want_launch}")
         if rep.n_samples != len(loaded.samples):
@@ -711,18 +792,23 @@ def phase_serve(torch, np, rows):
     table = [row for seg in em.compile(loaded).segments
              for row in seg.table.tolist()]
     ci, mi = sum(r[0] for r in table), sum(r[1] for r in table)
-    ck.launches = mk.launches = 0
+    legs = compute_legs(table)
+    ck.launches = ck.iterations = mk.launches = 0
     rep = em.emulate(loaded)
     torch.cuda.synchronize()
     got = {"burn_tile": ck.launches, "stream_pass": mk.launches}
     emit("serve", step="replay", backend="cuda", n_samples=rep.n_samples,
          ttc_s=rep.ttc_s, profiled_wall_s=prof.meta["wall_s"],
-         flops=loaded.totals.flops, compute_iters=ci, memory_iters=mi,
-         launches=got, host_flops_per_cpu_s=host.flops_per_s)
+         flops=loaded.totals.flops, compute_iters=ci, compute_legs=legs,
+         burned_iters=ck.iterations, memory_iters=mi, launches=got,
+         host_flops_per_cpu_s=host.flops_per_s)
     if not same_amounts(rep.consumed, loaded.totals):
         fail(f"serve replay consumed {rep.consumed} != {loaded.totals}")
-    if got != {"burn_tile": ci, "stream_pass": mi}:
-        fail(f"serve replay launched {got}, want {ci} burns, {mi} streams")
+    if ck.iterations != ci:
+        fail(f"serve replay burned {ck.iterations} iterations, want {ci}")
+    if got != {"burn_tile": legs, "stream_pass": mi}:
+        fail(f"serve replay launched {got}, want {legs} burns (one a "
+             f"compute leg), {mi} streams")
 
     # -- report: full depth, bf16, the kernel against dense attention ------
     full = build_model(cfg, dataclasses.replace(SERVE_RUN,
@@ -739,6 +825,12 @@ def phase_serve(torch, np, rows):
          token_agreement=agree.mean().item(),
          max_abs_logit_diff=(last["cuda"] - last["full"]).abs().max().item(),
          max_abs_logit=last["full"].abs().max().item())
+
+
+def compute_legs(table) -> int:
+    """Rows of a compiled table that burn: the kernel backend launches one
+    burn for each."""
+    return sum(r[0] > 0 for r in table)
 
 
 def same_amounts(a, b, rel: float = 1e-12) -> bool:

@@ -42,10 +42,17 @@ class WatcherBase:
         self._terminate = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._sample_interval = 1.0 / DEFAULT_SAMPLE_RATE
+        #: a cumulative watcher's totals read in ``start`` (None: none read)
+        self.baseline: Optional[Dict[str, float]] = None
 
     # -- plugin protocol ------------------------------------------------------
     def _pre_process(self, config: Dict):
         pass
+
+    def _read(self) -> Optional[Dict[str, float]]:
+        """A cumulative watcher's totals now; None where readings are
+        absolute (memory)."""
+        return None
 
     def _sample(self, now: float):
         raise NotImplementedError
@@ -72,6 +79,14 @@ class WatcherBase:
         self._post_process()
 
     def start(self, config: Dict):
+        # cumulative watchers read their totals once here, before the
+        # profiled callable runs, so that the first sample holds only what
+        # the callable consumed (the JAX package's first sample holds the
+        # process's totals since it started: repro/core/watchers.py:196)
+        try:
+            self.baseline = self._read()
+        except OSError:
+            self.baseline = None
         self._thread = threading.Thread(target=self.run, args=(config,),
                                         daemon=True, name=f"watcher-{self.name}")
         self._thread.start()
@@ -95,13 +110,15 @@ class CPUWatcher(WatcherBase):
     name = "cpu"
 
     def _pre_process(self, config):
-        self._hz = os.sysconf("SC_CLK_TCK")
         self._t0 = obs_clock.now()
 
-    def _sample(self, now: float):
+    def _read(self) -> Dict[str, float]:
         parts = _read_proc(f"/proc/{self.pid}/stat").rsplit(")", 1)[1].split()
         utime, stime = int(parts[11]), int(parts[12])
-        self.samples.append({"t": now, "cpu_s": (utime + stime) / self._hz})
+        return {"cpu_s": (utime + stime) / os.sysconf("SC_CLK_TCK")}
+
+    def _sample(self, now: float):
+        self.samples.append({"t": now, **self._read()})
 
     def _post_process(self):
         self.result["wall_s"] = obs_clock.now() - self._t0
@@ -137,17 +154,20 @@ class IOWatcher(WatcherBase):
 
     name = "io"
 
-    def _sample(self, now: float):
+    def _read(self) -> Dict[str, float]:
         rb = wb = 0
+        for line in _read_proc(f"/proc/{self.pid}/io").splitlines():
+            if line.startswith("read_bytes:"):
+                rb = int(line.split()[1])
+            elif line.startswith("write_bytes:"):
+                wb = int(line.split()[1])
+        return {"read": rb, "write": wb}
+
+    def _sample(self, now: float):
         try:
-            for line in _read_proc(f"/proc/{self.pid}/io").splitlines():
-                if line.startswith("read_bytes:"):
-                    rb = int(line.split()[1])
-                elif line.startswith("write_bytes:"):
-                    wb = int(line.split()[1])
+            self.samples.append({"t": now, **self._read()})
         except PermissionError:
             return
-        self.samples.append({"t": now, "read": rb, "write": wb})
 
     def _post_process(self):
         if self.samples:
@@ -193,7 +213,11 @@ class RuntimeProfiler:
         t_start = min([s["t"] for s in (cpu + mem + io)] or [0.0])
         dt = wall / n
         samples = []
-        prev_cpu = prev_r = prev_w = 0.0
+        # running totals start from the readings taken in ``start``
+        cpu0 = _baseline(ws, "cpu")
+        io0 = _baseline(ws, "io")
+        prev_cpu = cpu0.get("cpu_s", 0.0)
+        prev_r, prev_w = io0.get("read", 0.0), io0.get("write", 0.0)
         for i in range(n):
             r = ResourceVector()
             if i < len(cpu):
@@ -218,6 +242,11 @@ class RuntimeProfiler:
                 if not kk.endswith("_series")}
             for k, w in ws.items()}
         return prof
+
+
+def _baseline(ws: Dict[str, WatcherBase], name: str) -> Dict[str, float]:
+    """The totals watcher ``name`` read in ``start``; {} if it read none."""
+    return getattr(ws.get(name), "baseline", None) or {}
 
 
 def host_sysinfo() -> Dict[str, Any]:

@@ -4,25 +4,48 @@
 // _burn_kernel): y <- (y @ x) * 0.5 + 0.25, `iters` times, with y0 = x and
 // x fixed; 2 * tile^3 flops an iteration.
 //
-// Bound.  In principle the float32 FMA rate: 33.5 MFLOP an iteration at
-// tile 256, about 0.5 us at the H100's 67 TFLOP/s outside the tensor cores.
-// In practice launch latency: one iteration is one launch of a few
-// microseconds.
+// Bound.  The float32 FMA rate: 33.5 MFLOP an iteration at tile 256, about
+// 0.5 us at the H100's 67 TFLOP/s outside the tensor cores.  Exact float32
+// with FMA: no TF32 and no tensor cores, so the result matches the plain
+// float32 matmul chain to 1e-5.
 //
-// Design.  The TPU kernel keeps the whole tile resident in VMEM.  A 256x256
-// float32 tile is 256 KiB per operand, more than the 227 KB of shared memory
-// one block can use, so that does not carry over.  Here one launch computes
-// one iteration over a 2-D grid of 16x16 output blocks: each thread produces
-// one element of y @ x, staging 16x16 slices of y and x through shared
-// memory, and applies the epilogue.  The host function ping-pongs between
-// two buffers the caller allocates, so the last iteration lands in `out`;
-// x and both buffers (768 KiB at tile 256) stay resident in L2 between
-// launches.  Exact float32 with FMA: no TF32 and no tensor cores, so the
-// result matches the plain float32 matmul chain to 1e-5.  `iters` is a
-// run-time argument.  A cluster or persistent design is later work.
+// Design: one launch a burn (tiles 64, 128 and 256).  The chain has no
+// dependency between rows: y_{t+1}[R, :] = (y_t[R, :] @ x) * 0.5 + 0.25, so
+// a group of blocks that owns a row panel R never needs another group's
+// rows and a whole burn runs in one launch with no grid-wide barrier.  A
+// thread-block cluster of 2 CTAs owns a panel of 4 rows (64 clusters, 128
+// CTAs at tile 256); CTA j computes the columns C_j = [j tile/2,
+// (j+1) tile/2) of the panel.  The TPU kernel keeps x resident in VMEM;
+// here x's column slice x[:, C_j] stays in the CTA's registers for the
+// whole burn (128 floats a thread at tile 256): warp w holds the rows
+// K_w = [w tile/8, (w+1) tile/8) of it, and each lane tile/64 neighbouring
+// columns.  An iteration:
+//   1. each thread sums y_t[r, K_w] . x[K_w, c] for the panel's 4 rows and
+//      its columns, reading y_t from the CTA's own copy of the panel in
+//      shared memory (one address a warp: a broadcast);
+//   2. the 8 warps' partial sums meet in shared memory; 4 columns at a
+//      time are reduced, finished with (* 0.5 + 0.25) and stored into the
+//      next copy of the panel of both CTAs of the cluster (distributed
+//      shared memory, `map_shared_rank`), or into `out` on the last
+//      iteration;
+//   3. one cluster barrier publishes y_{t+1} to both CTAs.
+// The panel is double-buffered, so the one barrier also keeps a CTA from
+// overwriting a copy that the other still reads.  Why 2 CTAs and not 8:
+// the shared-memory loads of y bound step 1, and a warp loads each y value
+// once for all the columns its lanes cover; a CTA that owns half of x's
+// columns lets a warp cover 128 columns at tile 256, where one that owns
+// an eighth covers 32 and loads y four times as often.  x's half slice
+// still fits the registers (32768 floats over 256 threads).
+//
+// Other tiles (a multiple of 8, up to 2^15) take the per-iteration kernel:
+// one launch an iteration over 16x16 output blocks, ping-ponging between
+// `out` and `scratch` with x in L2.  The choice is by shape, here.
 #include <cstdint>
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -56,32 +79,203 @@ __global__ void burn_step(const float* __restrict__ y,
   }
 }
 
+cudaError_t burn_per_iteration(const float* x, float* out, float* scratch,
+                               int tile, int64_t iters, cudaStream_t s) {
+  float* bufs[2] = {out, scratch};
+  const dim3 block(kBlock, kBlock);
+  const int g = (tile + kBlock - 1) / kBlock;
+  const float* src = x;
+  for (int64_t k = 0; k < iters; ++k) {
+    float* dst = bufs[(iters - 1 - k) % 2];  // the last one lands in out
+    burn_step<<<dim3(g, g), block, 0, s>>>(src, x, dst, tile);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    src = dst;
+  }
+  return cudaSuccess;
+}
+
+constexpr int kCluster = 2;    // CTAs a cluster
+constexpr int kRows = 4;       // rows of a panel
+constexpr int kThreads = 256;  // threads a CTA
+constexpr int kWarps = kThreads / 32;
+
+template <int T>
+struct Burn {
+  static constexpr int W = T / kCluster;  // columns a CTA
+  static constexpr int CW = W / 32;       // columns a lane
+  static constexpr int KG = T / kWarps;   // k a warp
+  static_assert(CW >= 1 && CW <= 4 && KG % 4 == 0, "shape");
+  // two copies of the panel [kRows][T], then the partials [kRows][8][W]
+  static constexpr size_t kSmem =
+      (2 * size_t(kRows) * T + size_t(kRows) * kWarps * W) * sizeof(float);
+};
+
+template <int N>
+__device__ __forceinline__ void store(float* p, const float (&v)[N]) {
+  if constexpr (N == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (N == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    *p = v[0];
+  }
+}
+
+template <int T>
+__global__ void __launch_bounds__(kThreads)
+    burn_cluster(const float* __restrict__ x, float* __restrict__ out,
+                 int64_t iters) {
+  using B = Burn<T>;
+  constexpr int W = B::W, CW = B::CW, KG = B::KG;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());  // slice C_rank
+  const int64_t row0 = int64_t(blockIdx.x / kCluster) * kRows;
+  extern __shared__ float4 smem4[];
+  float* panel = reinterpret_cast<float*>(smem4);  // [2][kRows][T]
+  float* part = panel + 2 * kRows * T;             // [kRows][kWarps][W]
+
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;  // this warp's k: [warp KG, +KG)
+  const int c0 = lane * CW;           // this lane's columns of C_rank
+  float xr[KG][CW];
+#pragma unroll
+  for (int kk = 0; kk < KG; ++kk) {
+#pragma unroll
+    for (int j = 0; j < CW; ++j) {
+      xr[kk][j] = x[int64_t(warp * KG + kk) * T + rank * W + c0 + j];
+    }
+  }
+  // y0 = x: both CTAs of the cluster load the panel's rows themselves
+  for (int i = threadIdx.x; i < kRows * T / 4; i += kThreads) {
+    reinterpret_cast<float4*>(panel)[i] =
+        reinterpret_cast<const float4*>(x + row0 * T)[i];
+  }
+  // also: no CTA stores into the other's shared memory before it runs
+  cluster.sync();
+
+  for (int64_t it = 0; it < iters; ++it) {
+    const float* y = panel + (it & 1) * kRows * T;
+    float* ynext = panel + ((it + 1) & 1) * kRows * T;
+    // kRows x CW independent sums a thread; every y value a warp loads
+    // (one address: a broadcast) feeds 32 CW FMAs
+    float acc[kRows][CW];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+      for (int j = 0; j < CW; ++j) acc[r][j] = 0.0f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < KG; kk += 4) {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float4 yv =
+            *reinterpret_cast<const float4*>(y + r * T + warp * KG + kk);
+#pragma unroll
+        for (int j = 0; j < CW; ++j) {
+          acc[r][j] = fmaf(yv.x, xr[kk][j], acc[r][j]);
+          acc[r][j] = fmaf(yv.y, xr[kk + 1][j], acc[r][j]);
+          acc[r][j] = fmaf(yv.z, xr[kk + 2][j], acc[r][j]);
+          acc[r][j] = fmaf(yv.w, xr[kk + 3][j], acc[r][j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      store(part + (r * kWarps + warp) * W + c0, acc[r]);
+    }
+    __syncthreads();
+    const bool last = it + 1 == iters;
+    if (threadIdx.x < kRows * W / 4) {  // 4 columns a reducing thread
+      const int r = threadIdx.x / (W / 4);
+      const int cc = (threadIdx.x % (W / 4)) * 4;
+      float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const float4 p =
+            *reinterpret_cast<const float4*>(part + (r * kWarps + w) * W + cc);
+        s.x += p.x;
+        s.y += p.y;
+        s.z += p.z;
+        s.w += p.w;
+      }
+      // s * 0.5 is exact, so the fused form rounds like the two-step one
+      const float4 v = make_float4(fmaf(s.x, 0.5f, 0.25f),
+                                   fmaf(s.y, 0.5f, 0.25f),
+                                   fmaf(s.z, 0.5f, 0.25f),
+                                   fmaf(s.w, 0.5f, 0.25f));
+      const int col = rank * W + cc;
+      if (last) {
+        *reinterpret_cast<float4*>(out + (row0 + r) * T + col) = v;
+      } else {
+#pragma unroll
+        for (int q = 0; q < kCluster; ++q) {
+          float* dst = cluster.map_shared_rank(ynext, q);
+          *reinterpret_cast<float4*>(dst + r * T + col) = v;
+        }
+      }
+    }
+    // y_{t+1} is in both CTAs' panels, and both are done with y_t and with
+    // the partials; after the last iteration neither touches the other's
+    // shared memory, so no barrier is needed before exiting
+    if (!last) cluster.sync();
+  }
+}
+
+template <int T>
+cudaError_t burn_one_launch(const float* x, float* out, int64_t iters,
+                            cudaStream_t s) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster * (T / kRows), 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = Burn<T>::kSmem;  // 24 KB at most: no opt-in
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, burn_cluster<T>, x, out, iters);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// x, out and scratch are tile*tile float32 arrays on `device`; out and
-// scratch must not alias x.  Launches `iters` >= 1 kernels on `stream` and
-// returns the first launch error, or cudaSuccess.
+// The kernels synapse_burn_tile launches for a burn: one for the tiles that
+// take the cluster kernel, `iters` for any other tile.
+extern "C" int64_t synapse_burn_tile_launches(int64_t tile, int64_t iters) {
+  return tile == 64 || tile == 128 || tile == 256 ? 1 : iters;
+}
+
+// x, out and scratch are tile*tile float32 arrays on `device`, 16-byte
+// aligned; out and scratch must not alias x.  tile is a multiple of 8.
+// Tiles 64, 128 and 256 run all `iters` >= 1 iterations in one launch and
+// leave scratch untouched; other tiles launch one kernel an iteration.
+// Returns the first launch error, or cudaSuccess.
 extern "C" int synapse_burn_tile(const void* x, void* out, void* scratch,
                                  int64_t tile, int64_t iters, int64_t device,
                                  void* stream) {
-  if (tile <= 0 || tile > (1 << 15) || iters < 1) {
+  if (tile <= 0 || tile > (1 << 15) || tile % 8 || iters < 1) {
     return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(static_cast<int>(device));
   if (err != cudaSuccess) return err;
   const float* xf = static_cast<const float*>(x);
-  float* bufs[2] = {static_cast<float*>(out), static_cast<float*>(scratch)};
-  const dim3 block(kBlock, kBlock);
-  const int g = static_cast<int>((tile + kBlock - 1) / kBlock);
-  const dim3 grid(g, g);
-  const float* src = xf;
-  for (int64_t k = 0; k < iters; ++k) {
-    float* dst = bufs[(iters - 1 - k) % 2];  // the last one lands in out
-    burn_step<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-        src, xf, dst, static_cast<int>(tile));
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    src = dst;
+  float* of = static_cast<float*>(out);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (tile) {
+    case 64:
+      return burn_one_launch<64>(xf, of, iters, s);
+    case 128:
+      return burn_one_launch<128>(xf, of, iters, s);
+    case 256:
+      return burn_one_launch<256>(xf, of, iters, s);
+    default:
+      return burn_per_iteration(xf, of, static_cast<float*>(scratch),
+                                static_cast<int>(tile), iters, s);
   }
-  return cudaSuccess;
 }

@@ -42,6 +42,8 @@ _D = ctypes.c_double
 SIGNATURES = {
     # x, out, scratch, tile, iters, device, stream
     "synapse_burn_tile": (ctypes.c_int, [_P, _P, _P, _I, _I, _I, _P]),
+    # tile, iters -> the kernels synapse_burn_tile launches for them
+    "synapse_burn_tile_launches": (ctypes.c_int64, [_I, _I]),
     # x, out, scratch, n, dtype code, passes, device, stream
     "synapse_stream_pass": (ctypes.c_int,
                             [_P, _P, _P, _I, _I, _I, _I, _P]),

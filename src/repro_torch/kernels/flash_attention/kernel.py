@@ -6,7 +6,12 @@ softcap, grouped KV heads).
 ``NEG_INF`` mask on absolute positions, ``hd**-0.5`` scaling then the tanh
 softcap, ``p`` rounded to v's dtype before the PV product, and
 ``acc / max(l, 1e-30)`` in q's dtype.  Query head ``h`` reads KV head
-``h // group``.  The source says what bounds it and what its tiles are.
+``h // group``.  The C function picks the kernel by dtype: bfloat16 runs
+on the tensor cores (``csrc/flash_attention_sm90.cu``: ``wgmma`` products,
+TMA loads into a two-stage ring), float32 on the SIMT pipes in exact
+float32 (``csrc/flash_attention.cu``), since the tensor cores have no
+exact float32 product.  The sources say what bounds them and what their
+tiles are.
 
 ``block_q`` and ``block_kv`` keep the JAX package's contract: each is
 clipped to its sequence length and must divide it, or the call raises.

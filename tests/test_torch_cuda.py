@@ -30,13 +30,16 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("tile", [64, 256])
-def test_burn_tile_matches_plain(dev, tile):
+# tiles 64 and 256 run a burn in one cluster launch; 320 is above the
+# cluster kernel's tiles and runs one launch an iteration
+@pytest.mark.parametrize("tile,launches", [(64, 1), (256, 1), (320, 17)])
+def test_burn_tile_matches_plain(dev, tile, launches):
     x = torch.from_numpy((np.random.default_rng(0).standard_normal(
         (tile, tile)) * 0.1).astype(np.float32)).to(dev)
-    before = ck.launches
+    before = (ck.iterations, ck.launches)
     got = ck.burn_tile(x, iters=17)
-    assert ck.launches == before + 17
+    assert (ck.iterations, ck.launches) == (before[0] + 17,
+                                            before[1] + launches)
     torch.testing.assert_close(got, cref.burn_tile(x, iters=17),
                                atol=1e-5, rtol=1e-5)
 
@@ -60,9 +63,11 @@ def test_kernel_backend_counts_planned_launches(dev):
             flops=5 * 2.0 * tile ** 3, hbm_bytes=3 * 2.0 * block))])
     em = Emulator(calib=HostCalibration(1e9, 1e9, 1e8, 1e8), backend="cuda",
                   compute_tile=tile, mem_block=block)
-    ck.launches = mk.launches = 0
+    ck.launches = ck.iterations = mk.launches = 0
     rep = em.emulate(prof)
-    assert (ck.launches, mk.launches) == (5, 3)
+    # 5 iterations burned in one launch (one compute leg); 3 stream passes
+    assert (ck.iterations, ck.launches) == (5, 1)
+    assert mk.launches == 3
     assert rep.n_dispatches == 2 and rep.consumed == prof.totals
 
 

@@ -43,6 +43,24 @@ def test_burn_tile_matches_pallas(tile, iters):
     np.testing.assert_allclose(got, oracle, atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("tile", [64, 128, 256])
+@pytest.mark.parametrize("panel", ["first", "middle", "last"])
+def test_burn_chain_is_row_separable(tile, panel):
+    """The CUDA kernel runs a whole burn in one launch because a panel of
+    rows needs no other rows: the chain started from x[R] gives rows R of
+    the whole chain.  Not bitwise: the CPU's GEMM may block a row panel
+    differently."""
+    x = torch.from_numpy(_tile(tile, seed=3))
+    p = {"first": 0, "middle": tile // 32, "last": tile // 16 - 1}[panel]
+    rows = slice(16 * p, 16 * p + 16)      # the kernel's panel of 16 rows
+    iters = 17
+    y = x[rows]
+    for _ in range(iters):
+        y = (y @ x) * 0.5 + 0.25
+    torch.testing.assert_close(y, tcref.burn_tile(x, iters=iters)[rows],
+                               atol=1e-6, rtol=1e-6)
+
+
 def test_burn_ops_default_operand_and_flops():
     got = tcops.burn(iters=4, tile=64, device="cpu")
     want = np.asarray(cops.burn(iters=4, tile=64))
