@@ -25,6 +25,20 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
              the device's busy share is read from the
              launches and the device time of each, and ``predict`` is
              printed beside
+  fleet      fleet emulation through ``run_fleet`` / ``emulate_many``:
+             Qwen2-7B serving and training profiles (published widths,
+             cut in tokens, steps and checkpoint bytes) with the other
+             scenario families, on 2 threads of the ``"cuda"`` backend
+             (consumed equals planned, burned iterations and kernel
+             launches equal the schedule's), on warm pools of 1 and 2
+             spawned worker processes on the card (reports equal the
+             in-process replay; spawn-to-ready per worker), as a fork-join DAG
+             (parents finish before children start; the critical path),
+             and under a seeded chaos policy that kills each worker once
+             (totals unchanged); the H100's fleet prediction beside the
+             measured wall time.  Workers are spawned, never forked, and
+             this script re-imported as their ``__mp_main__`` defines
+             functions only
   serve      the dense zoo's serving path: Qwen2-7B's widths cut to 2
              layers in float32, the flash kernel against dense attention
              (final hidden states, greedy tokens); then the full model in
@@ -103,6 +117,24 @@ FLASH_CASES = [
 # RMS over the output's RMS (outputs average ~1000 values, so their typical
 # size is ~0.05 and 2e-2 alone is loose there)
 FLASH_SERVE_REL_RMS = 1e-2
+# Qwen2-7B's published sizes (src/repro/configs/qwen2_7b.py): 7.6e9
+# parameters, bf16 weights, a KV cache of 28 layers x 4 KV heads x 128 x 2
+# (K and V) x 2 bytes a token
+QWEN2_7B_PARAMS = 7.6e9
+QWEN2_7B_SERVING = dict(n_params=QWEN2_7B_PARAMS, bytes_per_param=2,
+                        kv_bytes_per_token=57344)
+# device bytes a training step moves per parameter: bf16 weights and
+# gradients (2 + 2), f32 Adam m, v and master copy (4 + 4 + 4)
+QWEN2_7B_TRAIN_BYTES_PER_PARAM = 16
+# the fleet phase's cuts: depth only (tokens, steps, requests, checkpoint
+# bytes), never a width; a checkpoint of 1 GiB, not the 15.2 GB of bf16
+# weights, keeps the phase near a minute
+FLEET_CUTS = {
+    "serving_traffic": {"n_requests": 1, "prefill_tokens": 32,
+                        "decode_tokens": 4},
+    "training_scan": {"tokens_per_step": 16, "n_steps": 2,
+                      "ckpt_bytes": float(1 << 30)},
+}
 # the serving shape: Qwen2-7B's prefill of 4 prompts of 2048 tokens
 SERVE_B, SERVE_S, SERVE_HQ, SERVE_HK, SERVE_HD = 4, 2048, 28, 4, 128
 SERVE_PROMPTS = (2048, 1536, 1024, 512)
@@ -516,7 +548,10 @@ def phase_flash(torch, np, rng):
 
 
 def phase_main_path(torch, rows):
-    from repro_torch.core import (Emulator, HardwareSpec, ProfileStore,
+    """The emulator end to end on a Qwen2-7B-sized profile; returns the
+    calibration and the device milliseconds of one iteration of each
+    backend's compute and memory legs, which the fleet phase reuses."""
+    from repro_torch.core import (H100_SXM, Emulator, ProfileStore,
                                   SegmentRunner, calibrate, get_spec,
                                   predict)
     from repro_torch.core.atoms import (compute_burn_body, compute_operand,
@@ -526,11 +561,8 @@ def phase_main_path(torch, rows):
     from repro_torch.kernels.memory_atom import kernel as mk
     from repro_torch.scenarios import generate
 
-    # Qwen2-7B's published sizes: 7.6e9 parameters in bf16, KV cache of
-    # 28 layers x 4 KV heads x 128 x 2 (K and V) x 2 bytes a token
     profile = generate("serving_traffic", n_requests=2, prefill_tokens=128,
-                       decode_tokens=16, n_params=7.6e9, bytes_per_param=2,
-                       kv_bytes_per_token=57344, seed=0)
+                       decode_tokens=16, seed=0, **QWEN2_7B_SERVING)
     with tempfile.TemporaryDirectory() as d:
         store = ProfileStore(d)
         store.add(profile)
@@ -557,11 +589,8 @@ def phase_main_path(torch, rows):
     }
     emit("main_path", step="iteration_device_ms", **per_iter_ms)
 
-    card = HardwareSpec(name="h100_sxm_fp32_datasheet",
-                        peak_flops=PEAK_FP32_FLOPS, hbm_bw=PEAK_HBM_BPS,
-                        ici_bw=0.0, ici_links=0, mem_per_chip=80e9)
     targets = {hw.name: predict(loaded, hw).ttc_max
-               for hw in (get_spec(loaded.meta["ref_hw"]), card)}
+               for hw in (get_spec(loaded.meta["ref_hw"]), H100_SXM)}
     launches = {}
     for backend in ("torch", "cuda"):
         em = Emulator(calib=calib, backend=backend)
@@ -620,8 +649,7 @@ def phase_main_path(torch, rows):
     # time is the cut run's, not the main path's (the once-per-sample sync
     # weighs more in a short run)
     cut = generate("serving_traffic", n_requests=1, prefill_tokens=8,
-                   decode_tokens=2, n_params=7.6e9, bytes_per_param=2,
-                   kv_bytes_per_token=57344, seed=0)
+                   decode_tokens=2, seed=0, **QWEN2_7B_SERVING)
     for backend in ("torch", "cuda"):
         em = Emulator(calib=calib, backend=backend)
         em.emulate(cut)
@@ -644,6 +672,202 @@ def phase_main_path(torch, rows):
     for name, row in rows.items():
         if name in launches:
             row["launches"] = launches[name]
+    return calib, per_iter_ms
+
+
+def fleet_jobs():
+    """The fleet phase's job set as ``run_fleet`` jobs: Qwen2-7B serving
+    and training at its published widths, and the other families at their
+    registered defaults."""
+    train_tokens = FLEET_CUTS["training_scan"]["tokens_per_step"]
+    return [
+        ("serving_traffic", dict(QWEN2_7B_SERVING, seed=0,
+                                 **FLEET_CUTS["serving_traffic"])),
+        ("training_scan", dict(
+            n_steps=FLEET_CUTS["training_scan"]["n_steps"],
+            flops_per_step=6 * QWEN2_7B_PARAMS * train_tokens,
+            hbm_per_step=QWEN2_7B_PARAMS * QWEN2_7B_TRAIN_BYTES_PER_PARAM,
+            ckpt_every=FLEET_CUTS["training_scan"]["n_steps"],
+            ckpt_bytes=FLEET_CUTS["training_scan"]["ckpt_bytes"])),
+        ("fanout_straggler", {}), ("retry_storm", {}),
+        ("mixed_fleet", {"seed": 1}), ("mixed_fleet", {"seed": 2}),
+    ]
+
+
+def planned_legs(em, profile):
+    """(compute iterations, memory iterations, compute legs) that the
+    kernel backend replays for ``profile``: the compiled table's rows, and
+    each barrier step's sample once for each of its ``count`` (storage
+    runs replay sample by sample)."""
+    from repro_torch.core.schedule import FusedSegment
+    ci = mi = legs = 0
+    for step in em.compile(profile).steps:
+        if isinstance(step, FusedSegment):
+            rows = [(r[0], r[1], 1) for r in step.table.tolist()]
+        else:
+            r = step.resources
+            rows = [(em.compute.iters_for(r.flops),
+                     em.memory.iters_for(r.hbm_bytes), step.count)]
+        for c, m, n in rows:
+            ci, mi, legs = ci + c * n, mi + m * n, legs + (c > 0) * n
+    return ci, mi, legs
+
+
+def phase_fleet(torch, calib, per_iter_ms):
+    """Fleet emulation on the card: the job set of ``fleet_jobs`` through
+    ``run_fleet`` on 2 threads of the ``"cuda"`` kernel backend, on warm
+    pools of 1 and 2 worker processes (``"torch"`` backend) against the
+    same profiles replayed in this process, as a fork-join ``WorkloadDag``,
+    and
+    under a seeded chaos policy that kills each worker once; then the
+    H100's ``predict_fleet`` row beside the measured wall time."""
+    from repro_torch.core import H100_SXM, Emulator
+    from repro_torch.fleet import (BundleTiming, ChaosPolicy, FleetConfig,
+                                   ProcessFleet, critical_path,
+                                   run_process_fleet)
+    from repro_torch.kernels.compute_atom import kernel as ck
+    from repro_torch.kernels.memory_atom import kernel as mk
+    from repro_torch.obs import Event
+    from repro_torch.scenarios import fork_join, generate, run_fleet
+
+    started = time.perf_counter()
+    jobs = fleet_jobs()
+    profiles = [generate(name, **kw) for name, kw in jobs]
+    emit("fleet", step="jobs", reduced=FLEET_CUTS, jobs=[
+        {"scenario": name, "n_samples": len(p.samples),
+         "flops": p.totals.flops, "hbm_bytes": p.totals.hbm_bytes,
+         "storage_write_bytes": p.totals.storage_write_bytes}
+        for (name, _), p in zip(jobs, profiles)])
+    card = torch.cuda.get_device_name(0)
+
+    # 1. thread fleet on the kernel backend
+    em = Emulator(calib=calib, backend="cuda")
+    legs = [planned_legs(em, p) for p in profiles]
+    ci, mi, cl = (sum(x[i] for x in legs) for i in range(3))
+    ck.launches = ck.iterations = mk.launches = 0
+    res = run_fleet(jobs, config=FleetConfig.thread(max_workers=2),
+                    emulator=em, hw=H100_SXM)
+    torch.cuda.synchronize()
+    got = {"burn_tile": ck.launches, "stream_pass": mk.launches}
+    burned = ck.iterations
+    fleet = res.fleet
+    busy_s = (ci * per_iter_ms["cuda"][0] + mi * per_iter_ms["cuda"][1]) / 1e3
+    emit("fleet", step="thread_cuda", workers=fleet.max_workers,
+         wall_s=fleet.wall_s, serial_s=fleet.serial_s,
+         speedup=fleet.speedup, compute_iters=ci, compute_legs=cl,
+         burned_iters=burned, memory_iters=mi, launches=got,
+         device_busy_s=busy_s, busy_share=busy_s / fleet.wall_s,
+         cache_stats=fleet.cache_stats)
+    for (name, _), r, p in zip(jobs, res.results, profiles):
+        if r.report.consumed != p.totals or r.profile.totals != p.totals:
+            fail(f"thread fleet: {name} consumed {r.report.consumed}, "
+                 f"planned {p.totals}")
+    if burned != ci:
+        fail(f"thread fleet: burned {burned} iterations, want {ci}")
+    if got != {"burn_tile": cl, "stream_pass": mi} or 0 in got.values():
+        fail(f"thread fleet: kernel launches {got}, want {cl} burns and "
+             f"{mi} streams")
+    pred = res.predictions
+    emit("fleet", step="predict", hw=pred["hw"],
+         predicted_serial_s=pred["serial_s"],
+         predicted_concurrent_lower_s=pred["concurrent_lower_s"],
+         dominant=pred["dominant_total"], measured_wall_s=fleet.wall_s)
+    if pred["hw"] != H100_SXM.name or pred["n_profiles"] != len(jobs):
+        fail(f"fleet prediction is for {pred['hw']}, {pred['n_profiles']} "
+             "profiles")
+
+    # 2. warm pools of 1 and 2 worker processes on the fused "torch"
+    # backend, against the same profiles replayed back to back here
+    em = Emulator(calib=calib, backend="torch")
+    t0 = time.perf_counter()
+    refs = [em.emulate(p, fused=True) for p in profiles]
+    torch.cuda.synchronize()
+    in_process_s = time.perf_counter() - t0
+    em.storage.cleanup()
+    emit("fleet", step="in_process_torch", wall_s=in_process_s,
+         ttc_s=[r.ttc_s for r in refs])
+    for n in (1, 2):
+        spec = FleetConfig.process(max_workers=n).worker_spec(
+            em.spec(), device=str(em.device))
+        spawned = time.monotonic()
+        with ProcessFleet(n, spec) as pool:
+            infos = pool.warmup(timeout=300.0)
+            # without heartbeats a worker's last_seen is stamped when its
+            # ready message arrives
+            spawn_to_ready = sorted(p.last_seen - spawned
+                                    for p in pool._peers)
+            warm = run_process_fleet(em, profiles, fleet=pool)
+        emit("fleet", step="process_torch", workers=warm.max_workers,
+             spawn_to_ready_s=spawn_to_ready, ready=infos,
+             wall_s=warm.wall_s, serial_s=warm.serial_s,
+             speedup=warm.speedup, in_process_s=in_process_s,
+             in_process_over_wall=in_process_s / warm.wall_s,
+             ttc_s=[r.ttc_s for r in warm.reports])
+        if [i["device"] for i in infos] != [card] * n:
+            fail(f"process fleet workers run on {infos}, not on {card}")
+        for r, ref in zip(warm.reports, refs):
+            if r.mode != "fused" or r.consumed != ref.consumed:
+                fail(f"process fleet: {r.command} consumed {r.consumed} "
+                     f"({r.mode}), in-process {ref.consumed}")
+        if warm.n_replayed != len(profiles):
+            fail(f"process fleet replayed {warm.n_replayed} profiles")
+
+    # 3. a fork-join DAG of the same profiles through the process fleet
+    dag = fork_join(profiles[0], profiles[1:-1], profiles[-1])
+    rep = em.emulate_many(dag, config=FleetConfig.process(max_workers=2))
+    events = [Event.from_dict(e) for e in rep.obs["events"]]
+    stamps = {}
+    for e in events:
+        if e.kind in ("enqueue", "dispatch", "done"):
+            stamps.setdefault(e.get("idx"), {}).setdefault(
+                e.kind, []).append(e.t)
+    timings = {}
+    for i, parents in dag.parents_map.items():
+        s = stamps.get(i, {})
+        if len(s.get("done", ())) != 1:
+            fail(f"dag: node {i} finished {len(s.get('done', ()))} times")
+        for p in parents:
+            if min(s["dispatch"]) < stamps[p]["done"][0]:
+                fail(f"dag: node {i} started before its parent {p} ended")
+        timings[i] = BundleTiming(
+            enqueued=min(s["enqueue"]), dispatched=max(s["dispatch"]),
+            done=s["done"][0], queue_s=0.0,
+            replay_s=s["done"][0] - max(s["dispatch"]), attempts=1, ok=True)
+    # the same analysis over the recorder's stamps, which are taken
+    # microseconds from the scheduler's own
+    cp = critical_path(dag.parents_map, timings)
+    emit("fleet", step="dag", n_nodes=rep.dag["n_nodes"],
+         n_edges=rep.dag["n_edges"], critical_nodes=rep.dag["critical_nodes"],
+         critical_path_s=rep.dag["critical_path_s"],
+         makespan_s=rep.dag["makespan_s"],
+         parallelism=rep.dag["parallelism"], wall_s=rep.wall_s,
+         from_events=cp["critical_path_s"])
+    for r, p in zip(rep.reports, dag.profiles()):
+        if r.consumed != p.totals:
+            fail(f"dag: {r.command} consumed {r.consumed}, want {p.totals}")
+    if rep.n_replayed != len(dag) or \
+            (rep.dag["n_nodes"], rep.dag["n_edges"]) != (len(dag),
+                                                         dag.n_edges) or \
+            rep.dag["critical_nodes"] != cp["critical_nodes"] or \
+            abs(rep.dag["critical_path_s"] - cp["critical_path_s"]) > 1e-3:
+        fail(f"dag: report {rep.dag}, from the recorder's stamps {cp}")
+
+    # 4. the pool of check 2 under chaos: each worker dies once, at its
+    # third bundle, with its CUDA context live, and is respawned
+    chaos = run_fleet(jobs, config=FleetConfig.process(
+        max_workers=2, chaos=ChaosPolicy(kill_every=3, max_faults=1,
+                                         seed=0)), emulator=em, hw=H100_SXM)
+    rec = chaos.fleet.recovery
+    emit("fleet", step="chaos", wall_s=chaos.fleet.wall_s,
+         worker_deaths=rec["worker_deaths"], requeued=rec["requeued"],
+         respawns=chaos.fleet.cache_stats["respawns"],
+         mttr_s=rec["mttr_s"], lost_replay_s=rec["lost_replay_s"],
+         requeue_latency_s=rec["requeue_latency_s"])
+    if rec["worker_deaths"] < 1:
+        fail("chaos: no worker died")
+    if chaos.fleet.totals != warm.totals:
+        fail(f"chaos: totals {chaos.fleet.totals} != {warm.totals}")
+    emit("fleet", step="done", seconds=time.perf_counter() - started)
 
 
 def phase_serve(torch, np, rows):
@@ -881,7 +1105,8 @@ def main() -> None:
     phase_device(torch)
     phase_build()
     rows = phase_kernels(torch, np)
-    phase_main_path(torch, rows)
+    calib, per_iter_ms = phase_main_path(torch, rows)
+    phase_fleet(torch, calib, per_iter_ms)
     phase_serve(torch, np, rows)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -2,9 +2,10 @@
 predict TTC on hardware you don't have (roofline terms per sample).
 
 Ported so far: the datamodel, the atoms (compute, memory, storage), the
-schedule compiler, the emulator, calibration, the predictor, the store and
-the runtime watchers.  The collective atom, the fleet and the static
-profiler are not ported yet.
+schedule compiler, the emulator with its thread and process fleets
+(``Emulator.emulate_many``, ``repro_torch.fleet``), calibration, the
+predictor, the store and the runtime watchers.  The collective atom and
+the static profiler are not ported yet.
 """
 from repro_torch.core.atoms import (CollectiveQuant, CollectiveSpec,  # noqa
                                     ComputeAtom, ComputeSpec, MemoryAtom,
@@ -16,9 +17,10 @@ from repro_torch.core.emulator import (EmulationReport, Emulator,  # noqa
 from repro_torch.core.schedule import (BarrierStep, CompiledSchedule,  # noqa
                                        FusedSegment, SegmentRunner,
                                        compile_schedule, rehydrate_schedule)
-from repro_torch.core.hardware import (HOST_ARCHER_NODE,  # noqa
-                                       HOST_I7_M620, HOST_STAMPEDE_NODE,
-                                       TPU_V5E, TPU_V5E_2POD, TPU_V5E_POD,
+from repro_torch.core.hardware import (H100_SXM,  # noqa
+                                       HOST_ARCHER_NODE, HOST_I7_M620,
+                                       HOST_STAMPEDE_NODE, TPU_V5E,
+                                       TPU_V5E_2POD, TPU_V5E_POD,
                                        HardwareSpec, get_spec)
 from repro_torch.core.metrics import (ResourceVector, Sample,  # noqa
                                       SynapseProfile)

@@ -239,8 +239,8 @@ class CollectiveQuant:
 
 #: where the collective atom stands in the plan of work
 COLLECTIVE_TODO = ("the collective atom is not ported yet "
-                   "(ROADMAP.md, queue 1: CollectiveAtom on "
-                   "torch.distributed)")
+                   "(ROADMAP.md, queue 2, item 3: CollectiveAtom "
+                   "on torch.distributed)")
 
 
 @dataclass(frozen=True)

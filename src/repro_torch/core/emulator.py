@@ -34,8 +34,10 @@ from __future__ import annotations
 
 import threading
 import time
+from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor
+from concurrent.futures import wait as futures_wait
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, Iterable, List, Optional
 
 from repro_torch.core.atoms import (COLLECTIVE_TODO, CollectiveSpec,
                                     ComputeAtom, ComputeSpec, MemoryAtom,
@@ -46,6 +48,28 @@ from repro_torch.core.metrics import ResourceVector, Sample, SynapseProfile
 from repro_torch.core.schedule import (CompiledSchedule, FusedSegment,
                                        SegmentRunner, compile_schedule)
 from repro_torch.device import DeviceLike, resolve, sync
+
+#: fleet backends ``emulate_many``/``run_fleet`` accept (see
+#: ``repro_torch.fleet``)
+VALID_EXECUTORS = ("thread", "process", "remote")
+
+
+class _Unset:
+    """Sentinel type for 'legacy fleet kwarg not passed', so explicitly
+    passed defaults fold into a ``FleetConfig`` (with the deprecation
+    warning) while silence does not.  Lives here rather than in
+    ``repro_torch.fleet.config`` so ``emulate_many`` can use it in its
+    signature without a core→fleet module-level import."""
+
+    def __repr__(self) -> str:  # pragma: no cover - repr only
+        return "<unset>"
+
+
+UNSET = _Unset()
+
+#: what ``executor="remote"`` raises until the transport is ported
+REMOTE_TODO = ("the remote fleet executor is not ported yet (ROADMAP.md, "
+               "queue 2, item 4: fleet/transport and fleet/agent)")
 
 
 @dataclass
@@ -113,9 +137,9 @@ class EmulationReport:
 
 @dataclass
 class FleetReport:
-    """Result of a fleet run: K profiles replayed concurrently.  The fleet
-    (``emulate_many``) is not ported yet; the report is, so reports written
-    by the JAX package's fleets load here and back.
+    """Result of a fleet run (``Emulator.emulate_many``): K profiles
+    replayed concurrently.  It serializes as the JAX package's does, so
+    reports written by either package's fleets load in the other.
 
     ``max_workers`` is the *effective* pool size (requested workers capped
     at the number of profiles, so tiny fleets don't spawn idle threads; an
@@ -130,13 +154,13 @@ class FleetReport:
     the run (worker_deaths/hung_reaped/requeued/requeue_latency_s/
     lost_replay_s/mttr_s/skipped/speculative_dispatches/speculative_wins/
     heartbeats) — what every fault cost, not just that recovery happened.
-    ``obs`` is the observability snapshot (``repro.obs``): the merged
+    ``obs`` is the observability snapshot (``repro_torch.obs``): the merged
     flight-recorder timeline (bounded), drop accounting, and a metrics
     snapshot — populated by the ``FleetBase`` executors.
     ``dag`` is the critical-path accounting of a dependency-structured
     run (``critical_path_s``/``makespan_s``/``sum_work_s``/
     ``parallelism``/``critical_nodes``/per-node ``slack_s`` — see
-    ``repro.fleet.dag.critical_path``); empty for linear runs.
+    ``repro_torch.fleet.dag.critical_path``); empty for linear runs.
     """
     reports: List[EmulationReport]
     wall_s: float                        # concurrent fleet wall time
@@ -360,6 +384,7 @@ class Emulator:
         self.storage = StorageAtom(self.calib, block_bytes=storage_block)
         self.speed = speed
         self.plan_cache = None
+        self._fleet_lock = threading.Lock()
         # Fused segments need table-driven loop counts, which the CUDA atom
         # kernels don't take; that backend replays per sample.
         self._fusable = backend == "torch"
@@ -555,6 +580,216 @@ class Emulator:
                                planned=profile.totals,
                                mode="per_sample",
                                n_dispatches=dispatches)
+
+    def emulate_many(self, profiles: Iterable[SynapseProfile], *,
+                     flops_scale: float = 1.0, storage_scale: float = 1.0,
+                     mem_scale: float = 1.0, verify: bool = True,
+                     fused: bool = True, config=None,
+                     collect: str = "reports",
+                     # legacy fleet kwargs: fold into a FleetConfig with a
+                     # DeprecationWarning — pass config= instead
+                     executor=UNSET, max_workers=UNSET, mesh_spec=UNSET,
+                     hosts=UNSET, listen=UNSET, agents=UNSET,
+                     timeout=UNSET) -> FleetReport:
+        """Fleet mode: replay many profiles concurrently.
+
+        ``profiles`` is any iterable — a list, or a lazy source like
+        ``ProfileStore.stream(...)``.  Every executor consumes it as a
+        stream: profiles are pulled (and, on processes, compiled to
+        bundles) at most ``config.window`` ahead of replay, so the source
+        is backpressured by worker throughput and coordinator memory stays
+        bounded by the window even when the stream is a production day
+        long.  ``collect="totals"`` additionally drops per-profile reports
+        after folding them into ``FleetReport.totals``, the bounded-memory
+        mode for unbounded streams.
+
+        ``config`` (a ``repro_torch.fleet.FleetConfig``) is the one knob
+        surface: ``FleetConfig.thread()`` runs profiles on worker threads
+        inside this process, sharing this emulator's atoms through a keyed
+        plan cache — identical (atom, amount) plans are built once for the
+        whole fleet instead of once per profile.  On the ``"cuda"`` backend
+        the threads' kernels share the current CUDA stream, so each
+        sample's sync also waits for the other threads' work.
+        ``FleetConfig.process(...)`` compiles each profile to a
+        ``CompiledSchedule`` here, detaches it to a picklable bundle, and
+        ships it to a spawn-based worker-process pool
+        (``repro_torch.fleet.ProcessFleet``) where each worker owns its own
+        emulator, CUDA context and plan cache on this emulator's device.
+        Process pools can be elastic (``autoscale=True``): workers are
+        spawned while queued bundles outnumber free slots and retired back
+        to ``min_workers`` when the stream drains, with the scale record in
+        ``FleetReport.scaling``.  See ``repro_torch.fleet``.  Not ported
+        yet, and raising ``NotImplementedError``: ``FleetConfig.remote``
+        (the TCP transport) and a ``mesh_spec`` (the collective atom).
+
+        ``config.timeout`` bounds each fleet run.  The process executor
+        enforces it strictly (the scheduler deadline); the thread
+        executor stops *starting* profiles at the deadline and raises, but
+        profiles already replaying run to completion — threads can't be
+        preempted.
+
+        The robustness knobs (``max_attempts``, ``liveness_timeout``,
+        ``speculate``, ``on_failure``, ``chaos``, ``max_respawns``) thread
+        straight through to the fleet scheduler; fault accounting comes
+        back in ``FleetReport.recovery``.  With ``on_failure="skip"`` the
+        run completes degraded instead of raising on a poison profile —
+        ``totals`` then cover only the replayed profiles, with the holes
+        listed in ``recovery["skipped"]``.
+
+        Each profile replays on exactly one worker, so the per-profile
+        sample-ordering contract is intact; ordering *across* profiles is
+        deliberately unconstrained (a fleet has no inter-profile
+        dependencies) — but aggregate ``totals`` are folded in profile
+        order, so they are bit-identical however the fleet is shaped.  A
+        sized ``profiles`` caps the pool at ``len(profiles)`` so tiny
+        fleets don't spawn idle workers.
+
+        ``profiles`` may also be a ``repro_torch.scenarios.WorkloadDag``
+        (anything exposing ``parents_map``): the fleet then honors the
+        dependency edges — a node dispatches only after every parent's
+        result lands — and the report's ``dag`` dict carries
+        critical-path accounting.  DAGs need the process executor (the
+        frontier scheduler lives in ``FleetBase.stream``) and
+        ``collect="reports"``; both are validated loudly here.
+        """
+        from repro_torch.fleet.config import FleetConfig
+        cfg = FleetConfig.fold(
+            config,
+            dict(executor=executor, max_workers=max_workers,
+                 mesh_spec=mesh_spec, hosts=hosts, listen=listen,
+                 agents=agents, timeout=timeout),
+            caller="Emulator.emulate_many")
+        if collect not in ("reports", "totals"):
+            raise ValueError("collect must be 'reports' (keep per-profile "
+                             "reports) or 'totals' (fold aggregates only)")
+        is_dag = hasattr(profiles, "parents_map")
+        if (is_dag or cfg.dag) and cfg.executor == "thread":
+            raise ValueError(
+                "dependency-structured workloads (WorkloadDag, or "
+                "FleetConfig(dag=True)) need executor='process' or "
+                "'remote': the frontier scheduler lives in the fleet "
+                "executors — the in-process thread pool has no dispatch "
+                "gating.  Use FleetConfig.process(...) or .remote(...)")
+        cfg.check_collect(collect, dag=is_dag)
+        if cfg.executor == "remote":
+            raise NotImplementedError(REMOTE_TODO)
+        if cfg.executor == "process":
+            if not (fused and self._fusable):
+                raise ValueError("executor='process' ships compiled "
+                                 "schedules and requires the fused torch "
+                                 "replay path (fused=True, backend='torch')")
+            from repro_torch.fleet.executor import run_process_fleet
+            return run_process_fleet(self, profiles,
+                                     max_workers=cfg.max_workers,
+                                     mesh_spec=cfg.mesh_spec,
+                                     flops_scale=flops_scale,
+                                     storage_scale=storage_scale,
+                                     mem_scale=mem_scale, verify=verify,
+                                     timeout=cfg.timeout, window=cfg.window,
+                                     autoscale=cfg.autoscale,
+                                     min_workers=cfg.min_workers,
+                                     max_attempts=cfg.max_attempts,
+                                     liveness_timeout=cfg.liveness_timeout,
+                                     speculate=cfg.speculate,
+                                     on_failure=cfg.on_failure,
+                                     chaos=cfg.chaos,
+                                     max_respawns=cfg.max_respawns,
+                                     collect=collect)
+        workers = cfg.max_workers
+        if hasattr(profiles, "__len__"):
+            workers = max(1, min(workers, len(profiles)))
+        win = cfg.window if cfg.window is not None else max(2 * workers, 2)
+        # One fleet at a time per emulator: the atoms, ephemeral cache
+        # attach/detach and scratch-file cleanup are instance state.
+        with self._fleet_lock:
+            cache = self.plan_cache
+            ephemeral = cache is None
+            if ephemeral:
+                # Scope the auto-created cache to this call: retained plans
+                # pin their operand tensors, so a long-lived emulator must
+                # not keep accumulating them as a side effect of one fleet
+                # replay.
+                cache = PlanCache()
+                self.set_plan_cache(cache)
+            before = cache.stats()
+            fold = ReportFold(keep_reports=collect != "totals")
+            skipped: List[int] = []
+            try:
+                t0 = time.perf_counter()
+                deadline = time.monotonic() + cfg.timeout
+                source = iter(profiles)
+                exhausted = False
+                next_idx = 0
+                n_samples = 0                    # true profile samples
+                inflight: Dict = {}              # future -> profile index
+                with ThreadPoolExecutor(max_workers=workers) as pool:
+                    try:
+                        while True:
+                            # admission: at most `win` profiles submitted
+                            # but unfinished — a lazy source is pulled (and
+                            # anything it generates materialized) only as
+                            # the pool drains
+                            while not exhausted and len(inflight) < win:
+                                try:
+                                    p = next(source)
+                                except StopIteration:
+                                    exhausted = True
+                                    break
+                                n_samples += len(p.samples)
+                                f = pool.submit(self.emulate, p,
+                                                flops_scale=flops_scale,
+                                                storage_scale=storage_scale,
+                                                mem_scale=mem_scale,
+                                                verify=verify, fused=fused)
+                                inflight[f] = next_idx
+                                next_idx += 1
+                            if not inflight:
+                                break
+                            left = deadline - time.monotonic()
+                            done = futures_wait(
+                                list(inflight), timeout=max(0.0, left),
+                                return_when=FIRST_COMPLETED).done
+                            if not done:
+                                raise TimeoutError(
+                                    f"fleet run exceeded {cfg.timeout}s "
+                                    f"with {len(inflight)} profile(s) "
+                                    "unfinished (in-flight thread replays "
+                                    "drain before this raises)")
+                            for f in done:
+                                idx = inflight.pop(f)
+                                try:
+                                    rep = f.result()
+                                except Exception:
+                                    # threads share this process, so there
+                                    # is no worker to reap or retry against:
+                                    # a profile that raises is degraded-mode
+                                    # skippable, nothing else
+                                    if cfg.on_failure != "skip":
+                                        raise
+                                    skipped.append(idx)
+                                    fold.skip(idx)
+                                    continue
+                                fold.add(idx, rep)
+                    except BaseException:
+                        for f in inflight:
+                            f.cancel()           # queued ones never start
+                        raise
+                wall = time.perf_counter() - t0
+            finally:
+                if ephemeral:
+                    self.set_plan_cache(None)
+                self.storage.cleanup()   # pool threads churn -> fresh
+                                         # scratch files per run
+            # report this call's activity, not cache-lifetime totals
+            after = cache.stats()
+            stats = {k: after[k] - before[k] for k in ("plans_built", "hits")}
+            stats["size"] = after["size"]
+        recovery = {"skipped": sorted(skipped)} if skipped else {}
+        return FleetReport(reports=fold.reports, wall_s=wall,
+                           serial_s=fold.serial_s, max_workers=workers,
+                           cache_stats=stats, totals=fold.totals,
+                           n_samples=n_samples, n_replayed=fold.n_done,
+                           recovery=recovery)
 
 
 def _collapse(samples: List[Sample]):

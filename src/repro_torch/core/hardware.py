@@ -4,9 +4,10 @@ The paper predicts TTC on machines the user cannot access from a
 resource-consumption profile + a hardware description; these specs are that
 description.  They are targets for ``predictor.predict``, kept identical to
 the JAX package's so both packages predict the same times: a TPU v5e pod
-and the paper's CPU hosts.  None of them describes the GPU the port's atoms
-run on; what the atoms sustain on a device is measured by
-``repro_torch.core.calibrate``.
+and the paper's CPU hosts.  ``H100_SXM`` describes the card the port runs
+on, from its datasheet; it is the port's own and stays out of ``REGISTRY``,
+which holds the JAX package's targets.  What the atoms sustain on a device
+is measured by ``repro_torch.core.calibrate``.
 """
 from __future__ import annotations
 
@@ -58,6 +59,13 @@ HOST_STAMPEDE_NODE = HardwareSpec(name="stampede_e5_2680", peak_flops=346e9,
 HOST_ARCHER_NODE = HardwareSpec(name="archer_e5_2697v2", peak_flops=518e9,
                                 hbm_bw=59e9, ici_bw=0.0, ici_links=0,
                                 mem_per_chip=64e9, storage_bw=150e6)
+
+# NVIDIA H100 SXM, datasheet figures: the atoms burn float32, so the peak is
+# float32 outside the tensor cores (67 TFLOP/s), not the bf16 rate; 3.35 TB/s
+# of HBM3, 80 GB; one card, no wire
+H100_SXM = HardwareSpec(name="h100_sxm_fp32_datasheet", peak_flops=67e12,
+                        hbm_bw=3.35e12, ici_bw=0.0, ici_links=0,
+                        mem_per_chip=80e9)
 
 REGISTRY: Dict[str, HardwareSpec] = {
     s.name: s for s in [TPU_V5E, HOST_I7_M620, HOST_STAMPEDE_NODE,

@@ -15,6 +15,8 @@ it.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from repro_torch.kernels import build
@@ -25,6 +27,9 @@ from repro_torch.kernels.compute_atom import ref
 launches = 0
 #: iterations burned by those launches
 iterations = 0
+#: guards both counters: a thread fleet on the kernel backend burns from
+#: several threads at once, and ``+=`` on a global can lose a count
+_count_lock = threading.Lock()
 
 
 def check_input(x: torch.Tensor, iters: int) -> int:
@@ -65,6 +70,7 @@ def burn_tile(x: torch.Tensor, *, iters: int) -> torch.Tensor:
         None if scratch is None else scratch.data_ptr(), tile, iters,
         x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, err, "burn_tile")
-    launches += n_launches
-    iterations += iters
+    with _count_lock:
+        launches += n_launches
+        iterations += iters
     return out

@@ -14,6 +14,8 @@ raises.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from repro_torch.kernels import build
@@ -21,6 +23,9 @@ from repro_torch.kernels.memory_atom import ref
 
 #: kernel launches issued by ``stream_passes`` (one a pass; CUDA only)
 launches = 0
+#: guards the counter: a thread fleet on the kernel backend streams from
+#: several threads at once, and ``+=`` on a global can lose a count
+_count_lock = threading.Lock()
 
 #: dtype codes of the C interface
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -68,7 +73,8 @@ def stream_passes(x: torch.Tensor, *, block: int,
         DTYPES[x.dtype], passes, x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, err, "stream_pass")
-    launches += passes
+    with _count_lock:
+        launches += passes
     return out
 
 

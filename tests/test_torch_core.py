@@ -97,8 +97,11 @@ def test_serving_traffic_generates_identical_samples(params):
 
 
 def test_scenario_registry_validates_like_reference():
+    from repro.scenarios import list_scenarios as r_list_scenarios
     from repro_torch.scenarios import list_scenarios, validate
-    assert list_scenarios() == ["serving_traffic"]
+    # every scenario family is ported (the registry grew from
+    # serving_traffic alone to the reference's set)
+    assert list_scenarios() == r_list_scenarios()
     with pytest.raises(TypeError):
         t_generate("serving_traffic", bogus=1)
     bad = _profile(T, [{"flops": -1.0}])

@@ -4,6 +4,9 @@ Marked ``cuda``: they skip where there is no CUDA device.  This file
 imports no JAX, so it runs on a machine that has the card and PyTorch
 alone: ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 """
+import sys
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -12,11 +15,13 @@ from repro_torch.configs import get_config, reduced_config
 from repro_torch.configs.run import RunConfig
 from repro_torch.core import Emulator, HostCalibration, SynapseProfile
 from repro_torch.core import ResourceVector, Sample
+from repro_torch.fleet import FleetConfig
 from repro_torch.kernels.compute_atom import kernel as ck, ref as cref
 from repro_torch.kernels.flash_attention import kernel as fk, ref as fref
 from repro_torch.kernels.memory_atom import kernel as mk, ops as mops
 from repro_torch.kernels.memory_atom import ref as mref
 from repro_torch.models.model_zoo import build_model
+from repro_torch.scenarios import generate
 from repro_torch.serve.engine import Engine, Request
 
 pytestmark = pytest.mark.cuda
@@ -135,3 +140,64 @@ def test_reduced_engine_serves_the_same_tokens_with_the_kernel(dev):
                                         if impl == "cuda" else 0)
         outs[impl] = [r.out_tokens for r in reqs]
     assert outs["cuda"] == outs["full"]
+
+
+def test_kernel_counters_exact_under_threads(dev):
+    """A thread fleet on the kernel backend burns and streams from several
+    threads at once: 4 threads x 50 burns and 4 x 50 streams, with the
+    interpreter switching threads as often as it can, lose no count."""
+    x = torch.full((64, 64), 0.01, device=dev)
+    y = torch.ones(1 << 16, device=dev)
+    before = (ck.launches, ck.iterations, mk.launches)
+    start, errors = threading.Barrier(8), []
+
+    def run(fn):
+        try:
+            start.wait()
+            for _ in range(50):
+                fn()
+        except BaseException as e:        # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(
+        lambda: ck.burn_tile(x, iters=3),)) for _ in range(4)] + [
+        threading.Thread(target=run, args=(
+            lambda: mk.stream_passes(y, block=1 << 16, passes=2),))
+        for _ in range(4)]
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    torch.cuda.synchronize()
+    assert not errors and not any(t.is_alive() for t in threads)
+    # tile 64 burns in one launch; a stream launches once a pass
+    assert (ck.launches - before[0], ck.iterations - before[1],
+            mk.launches - before[2]) == (200, 600, 400)
+
+
+def test_process_fleet_on_the_card(dev):
+    """2 spawned workers on the card, on the fused ``"torch"`` backend:
+    each report equals the in-process replay, and each worker names the
+    card it runs on."""
+    em = Emulator(calib=HostCalibration(1e9, 1e9, 1e8, 1e8),
+                  compute_tile=64, mem_block=1 << 18)
+    jobs = [generate("fanout_straggler", n_workers=4, work_flops=2e7,
+                     work_hbm=4e6), generate("retry_storm", seed=2),
+            generate("mixed_fleet", total_samples=8, seed=1)]
+    want = [em.emulate(p, fused=True) for p in jobs]
+    em.storage.cleanup()
+    rep = em.emulate_many(jobs, config=FleetConfig.process(max_workers=2))
+    assert [(r.consumed, r.n_samples, r.mode) for r in rep.reports] == \
+        [(r.consumed, r.n_samples, "fused") for r in want]
+    assert rep.recovery["worker_deaths"] == 0
+    from repro_torch.fleet import ProcessFleet, WorkerSpec
+    with ProcessFleet(2, WorkerSpec(emulator=em.spec(),
+                                    device=str(em.device))) as pf:
+        infos = pf.warmup(timeout=300.0)
+    assert [i["device"] for i in infos] == \
+        [torch.cuda.get_device_name(0)] * 2

@@ -20,6 +20,12 @@ SLICE = [
     "repro_torch.core.emulator", "repro_torch.core.predictor",
     "repro_torch.core.store", "repro_torch.core.watchers",
     "repro_torch.obs", "repro_torch.obs.clock",
+    "repro_torch.obs.recorder", "repro_torch.obs.metrics",
+    "repro_torch.service", "repro_torch.service.slo",
+    "repro_torch.fleet", "repro_torch.fleet.bundle",
+    "repro_torch.fleet.chaos", "repro_torch.fleet.config",
+    "repro_torch.fleet.dag", "repro_torch.fleet.executor",
+    "repro_torch.fleet.worker",
     "repro_torch.kernels", "repro_torch.kernels.build",
     "repro_torch.kernels.compute_atom",
     "repro_torch.kernels.compute_atom.kernel",
@@ -30,7 +36,10 @@ SLICE = [
     "repro_torch.kernels.memory_atom.ops",
     "repro_torch.kernels.memory_atom.ref",
     "repro_torch.scenarios", "repro_torch.scenarios.base",
-    "repro_torch.scenarios.serving",
+    "repro_torch.scenarios.serving", "repro_torch.scenarios.algebra",
+    "repro_torch.scenarios.training", "repro_torch.scenarios.fanout",
+    "repro_torch.scenarios.retry", "repro_torch.scenarios.mixed",
+    "repro_torch.scenarios.dag", "repro_torch.scenarios.driver",
     "repro_torch.kernels.flash_attention",
     "repro_torch.kernels.flash_attention.kernel",
     "repro_torch.kernels.flash_attention.ops",
@@ -87,6 +96,9 @@ _FORBIDDEN = re.compile(r"^\s*(import jax\b|from jax\b|import repro\b(?!_)"
 def test_port_sources_name_no_jax_or_repro():
     files = list(_port_files())
     assert len(files) > 20
+    # the scan reaches every subpackage, this slice's included
+    for sub in ("fleet", "obs", "service", "scenarios"):
+        assert any(os.sep + sub + os.sep in f for f in files), sub
     for path in files:
         with open(path) as f:
             hits = _FORBIDDEN.findall(f.read())
