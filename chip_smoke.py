@@ -39,6 +39,19 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
              measured wall time.  Workers are spawned, never forked, and
              this script re-imported as their ``__mp_main__`` defines
              functions only
+  service    the live traffic service: ``serving_traffic`` requests at
+             Qwen2-7B's widths (the fleet phase's cut) arriving as a
+             seeded Poisson stream at a warm 2-worker ``StandingFleet`` on
+             the card, two sessions on one pool (every request's consumed
+             equals its profile's totals; identical arrival timelines;
+             queue wait, replay and latency quantiles), the same stream
+             through ``run_load`` under a chaos kill (deaths, respawns,
+             MTTR in the faulted SLO windows), a load run over HTTP on
+             port 0 (``/run``, ``/metrics``, the run's trace), a host agent
+             (``python -m repro_torch.fleet.agent``) replaying the fleet
+             phase's jobs through the remote executor bit for bit like the
+             in-process replay, and the scenarios CLI as a subprocess;
+             every trace validates with one replay span a dispatch
   serve      the dense zoo's serving path: Qwen2-7B's widths cut to 2
              layers in float32, the flash kernel against dense attention
              (final hidden states, greedy tokens); then the full model in
@@ -868,6 +881,299 @@ def phase_fleet(torch, calib, per_iter_ms):
     if chaos.fleet.totals != warm.totals:
         fail(f"chaos: totals {chaos.fleet.totals} != {warm.totals}")
     emit("fleet", step="done", seconds=time.perf_counter() - started)
+    return profiles, refs
+
+
+def quantiles(values):
+    """p50/p99/p999 of ``values`` through the service's latency sketch,
+    the same estimator the SLO report's latencies come from."""
+    from repro_torch.service import LatencySketch
+    sk = LatencySketch()
+    for v in values:
+        sk.add(max(float(v), 0.0))
+    return {"p50": sk.quantile(0.5), "p99": sk.quantile(0.99),
+            "p999": sk.quantile(0.999), "count": sk.count}
+
+
+def replay_spans_match(events, name):
+    """The trace of a run's events passes ``validate_trace`` and holds one
+    replay span a dispatch; returns the trace."""
+    from repro_torch.obs import Event, to_chrome_trace, validate_trace
+    evs = [e if isinstance(e, Event) else Event.from_dict(e) for e in events]
+    trace = to_chrome_trace(evs)
+    try:
+        validate_trace(trace)
+    except ValueError as e:
+        fail(f"{name}: trace does not validate: {e}")
+    spans = sum(t.get("cat") == "replay" and t["ph"] == "X"
+                for t in trace["traceEvents"])
+    dispatches = sum(e.kind == "dispatch" and e.scope == "coordinator"
+                     for e in evs)
+    if spans != dispatches or spans == 0:
+        fail(f"{name}: {spans} replay spans for {dispatches} dispatches")
+    return trace
+
+
+def src_env():
+    """The environment of a subprocess that must find the package."""
+    old = os.environ.get("PYTHONPATH", "")
+    return dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")
+                + (os.pathsep + old if old else ""))
+
+
+def phase_service(torch, calib, fleet_profiles, fleet_refs):
+    """The live traffic service on the card: ``serving_traffic`` requests
+    at Qwen2-7B's widths (the fleet phase's cut) arriving as a seeded
+    Poisson stream at a warm ``StandingFleet`` of 2 workers (two sessions
+    on one pool), the same stream under a chaos kill through ``run_load``,
+    the HTTP surface on port 0, a host agent serving the fleet phase's
+    jobs through ``emulate_many`` on the remote executor, and the
+    scenarios CLI as a subprocess.  Workers replay the fused ``"torch"``
+    path, so no kernel is launched here."""
+    import urllib.request
+
+    from repro_torch.core import Emulator, ReportFold
+    from repro_torch.fleet import ChaosPolicy, FleetConfig
+    from repro_torch.kernels.compute_atom import kernel as ck
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.memory_atom import kernel as mk
+    from repro_torch.obs import Event, parse_promtext, validate_trace
+    from repro_torch.obs import now as obs_now
+    from repro_torch.scenarios import generate
+    from repro_torch.service import PoissonArrivals, StandingFleet, run_load
+    from repro_torch.service.http import make_server
+
+    started = time.perf_counter()
+    card = torch.cuda.get_device_name(0)
+    params = dict(QWEN2_7B_SERVING, seed=0, **FLEET_CUTS["serving_traffic"])
+    profile = generate("serving_traffic", **params)
+    em = Emulator(calib=calib, backend="torch")
+    t0 = time.perf_counter()
+    ref = em.emulate(profile, fused=True)
+    emit("service", step="traffic", scenario="serving_traffic",
+         params=params, reduced=FLEET_CUTS["serving_traffic"],
+         n_samples=len(profile.samples), flops=profile.totals.flops,
+         hbm_bytes=profile.totals.hbm_bytes,
+         in_process_replay_s=time.perf_counter() - t0)
+    if ref.consumed != profile.totals:
+        fail(f"service: in-process replay consumed {ref.consumed}")
+
+    def arrivals():
+        return PoissonArrivals(rate_hz=1.0, n_requests=10, seed=0,
+                               scenario="serving_traffic", params=params)
+
+    def want_totals(n):
+        fold = ReportFold(keep_reports=False)
+        for i in range(n):
+            fold.add(i, ref)
+        return fold.totals
+
+    def check_requests(name, load, reps, n):
+        serve = load.serve
+        if load.n_arrivals != n or serve.n_ok != n or serve.n_skipped:
+            fail(f"{name}: {serve.n_ok} of {load.n_arrivals} requests "
+                 f"done, {serve.n_skipped} skipped")
+        if sorted(reps) != list(range(n)) or any(
+                r.consumed != profile.totals or r.mode != "fused"
+                for r in reps.values()):
+            fail(f"{name}: a request's consumed is not its profile's "
+                 f"totals {profile.totals}")
+        if serve.totals != want_totals(n):
+            fail(f"{name}: totals {serve.totals}")
+        if load.slo["n_completed"] != n or load.latency.count != n:
+            fail(f"{name}: the sketch counts {load.latency.count} of {n}")
+
+    def timing(load):
+        recs = load.serve.records
+        return {"wall_s": load.wall_s,
+                "queue_s": quantiles(r.timing.queue_s for r in recs),
+                "replay_s": quantiles(r.timing.replay_s for r in recs),
+                "latency_s": {k: load.slo[k] for k in ("p50", "p99",
+                                                        "p999")}}
+
+    ck.launches = ck.iterations = mk.launches = fk.launches = 0
+
+    # 1. a warm standing pool of 2 workers on the card, two sessions of
+    # the same seeded arrivals
+    timelines = []
+    with StandingFleet(em, FleetConfig.process(max_workers=2,
+                                               timeout=600.0)) as sf:
+        spawned = time.monotonic()
+        infos = sf.warmup(timeout=300.0)
+        spawn_to_ready = sorted(p.last_seen - spawned
+                                for p in sf.fleet._peers)
+        emit("service", step="standing_warmup", ready=infos,
+             spawn_to_ready_s=spawn_to_ready)
+        if [i["device"] for i in infos] != [card] * 2:
+            fail(f"standing pool workers run on {infos}, not on {card}")
+        for session in (1, 2):
+            reps = {}
+            unsubscribe = sf.on_complete(
+                lambda rec, rep, reps=reps: reps.update({rec.idx: rep}))
+            load = run_load(em, arrivals(), standing=sf)
+            unsubscribe()
+            name = f"standing session {session}"
+            check_requests(name, load, reps, 10)
+            timelines.append([(r.meta["t"], r.meta["arrival"].params)
+                              for r in load.serve.records])
+            replay_spans_match(load.serve.obs["events"], name)
+            emit("service", step="standing", session=session,
+                 **timing(load), n_requests=load.n_arrivals,
+                 worker_deaths=load.serve.recovery["worker_deaths"])
+    if timelines[0] != timelines[1]:
+        fail("the two sessions saw different arrival timelines")
+
+    # 2. the same arrivals under a chaos kill: each worker dies at its
+    # fourth bundle, once, and is respawned.  One worker, as in the JAX
+    # package's own storm contract: every respawn is then needed to finish
+    # the run, so every death is repaired inside it (with two, a respawn
+    # still warming when the other worker drains the queue leaves its
+    # fault open at the end, at random)
+    chaos_cfg = FleetConfig.process(
+        max_workers=1, chaos=ChaosPolicy(kill_every=4, max_faults=1, seed=0),
+        liveness_timeout=5.0, max_respawns=6, timeout=600.0)
+    with StandingFleet(em, chaos_cfg) as sf:
+        sf.warmup(timeout=300.0)
+        reps = {}
+        sf.on_complete(lambda rec, rep: reps.update({rec.idx: rep}))
+        storm = run_load(em, arrivals(), standing=sf, window_s=1.0)
+        respawns = sf.fleet.respawns
+    rec = storm.serve.recovery
+    faulted = [w for w in storm.slo["windows"] if w["faults"]]
+    emit("service", step="storm", **timing(storm),
+         worker_deaths=rec["worker_deaths"], respawns=respawns,
+         mttr_s=rec["mttr_s"], requeued=rec.get("requeued"),
+         faulted_windows=len(faulted),
+         faulted_p999_s=max((w["p999"] for w in faulted), default=None))
+    check_requests("storm", storm, reps, 10)
+    if rec["worker_deaths"] < 1 or respawns < 1:
+        fail(f"storm: {rec['worker_deaths']} deaths, {respawns} respawns")
+    if not faulted or len(storm.slo["faults"]) != rec["worker_deaths"]:
+        fail(f"storm: {len(faulted)} faulted windows, "
+             f"{len(storm.slo['faults'])} faults for "
+             f"{rec['worker_deaths']} deaths")
+    trace = replay_spans_match(storm.serve.obs["events"], "storm")
+    if not any(t["name"] == "fault_opened" and t["ph"] == "i"
+               for t in trace["traceEvents"]):
+        fail("storm: the trace has no fault instant")
+
+    # 3. the HTTP surface over an emulator on the card
+    server = make_server(port=0, emulator=em)
+    thread = __import__("threading").Thread(target=server.serve_forever,
+                                            daemon=True)
+    thread.start()
+    try:
+        host, port = server.server_address[:2]
+        base = f"http://{host}:{port}"
+        query = ("scenario=serving_traffic&process=constant&rate_hz=2&n=4"
+                 "&workers=1&wait=1&" + "&".join(
+                     f"p_{k}={v}" for k, v in params.items()))
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(f"{base}/run?{query}",
+                                    timeout=300) as r:
+            run = json.loads(r.read())
+        http_s = time.perf_counter() - t0
+        with urllib.request.urlopen(f"{base}/metrics", timeout=60) as r:
+            metrics = parse_promtext(r.read().decode())
+        with urllib.request.urlopen(f"{base}{run.get('trace', '/trace')}",
+                                    timeout=60) as r:
+            run_trace = json.loads(r.read())
+    finally:
+        server.shutdown()
+        thread.join(30)
+        server.service.shutdown()
+        server.server_close()
+    report = run.get("report") or {}
+    slo = report.get("slo") or {}
+    counted = {f"{name}{labels}": v for fam in (
+        "repro_service_runs_total", "repro_service_requests_total")
+        for (name, labels), v in metrics.get(fam, {}).get(
+            "samples", {}).items()}
+    emit("service", step="http", state=run.get("state"),
+         error=run.get("error"), seconds=http_s,
+         n_completed=slo.get("n_completed"),
+         latency_s={k: slo.get(k) for k in ("p50", "p99", "p999")},
+         metrics=counted, trace_events=len(run_trace.get("traceEvents",
+                                                          ())))
+    if run.get("state") != "done" or slo.get("n_completed") != 4 or \
+            report.get("n_ok") != 4:
+        fail(f"http: run {run.get('state')} {run.get('error')}, "
+             f"{slo.get('n_completed')} completed")
+    if counted.get('repro_service_runs_total{state="done"}') != 1 or \
+            counted.get('repro_service_requests_total{outcome="ok"}') != 4:
+        fail(f"http: /metrics counts {counted}")
+    try:
+        validate_trace(run_trace)
+    except ValueError as e:
+        fail(f"http: the run's trace does not validate: {e}")
+
+    # 4. a host agent on this machine, dialled by the remote executor
+    agent = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.fleet.agent", "--listen",
+         "127.0.0.1:0", "--workers", "2"], env=src_env(),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        line = agent.stdout.readline()
+        if "listening on" not in line:
+            fail(f"remote: the agent printed {line!r}")
+        addr = line.strip().rsplit(" ", 1)[-1]
+        t_call = obs_now()
+        out = em.emulate_many(fleet_profiles,
+                              config=FleetConfig.remote([addr],
+                                                        timeout=600.0))
+        agent_out, agent_err = agent.communicate(timeout=120)
+    finally:
+        if agent.poll() is None:
+            agent.kill()
+            agent.communicate(timeout=30)
+    events = [Event.from_dict(e) for e in out.obs["events"]]
+    first = min(e.t for e in events if e.kind == "dispatch")
+    last = max(e.t for e in events if e.kind == "done")
+    ready = [ln for ln in agent_out.splitlines() if "ready:" in ln]
+    emit("service", step="remote", agent=out.cache_stats,
+         join_s=first - t_call, wall_s=out.wall_s,
+         replay_wall_s=last - first, serial_s=out.serial_s,
+         speedup=out.speedup, ready=ready, agent_rc=agent.returncode)
+    if agent.returncode != 0:
+        fail(f"remote: the agent exited {agent.returncode}: "
+             f"{agent_err[-2000:]}")
+    if not ready or card not in ready[0]:
+        fail(f"remote: the agent's workers are not on {card}: {ready}")
+    if len(out.reports) != len(fleet_refs) or any(
+            r.mode != "fused" or r.consumed != f.consumed
+            for r, f in zip(out.reports, fleet_refs)):
+        fail("remote: reports differ from the in-process replay")
+    tracks = {t["args"]["name"] for t in replay_spans_match(
+        events, "remote")["traceEvents"]
+        if t["ph"] == "M" and t["name"] == "thread_name"}
+    if not any(t.startswith("agent") for t in tracks):
+        fail(f"remote: the merged trace has no agent track: {tracks}")
+
+    # 5. the scenarios CLI on the card
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.scenarios", "run",
+         "serving_traffic", *[a for k, v in params.items()
+                              for a in ("-p", f"{k}={v}")], "--json"],
+        env=src_env(), capture_output=True, text=True, timeout=300)
+    emit("service", step="cli", rc=cli.returncode,
+         seconds=time.perf_counter() - t0)
+    if cli.returncode != 0:
+        fail(f"cli: exited {cli.returncode}: {cli.stderr[-2000:]}")
+    got = json.loads(cli.stdout)["report"]
+    want = profile.totals
+    if (got["mode"], got["flops"], got["hbm_bytes"],
+            got["storage_write_bytes"]) != (
+            "fused", want.flops, want.hbm_bytes,
+            want.storage_write_bytes):
+        fail(f"cli: report {got}, profile totals {want}")
+
+    launches = {"burn_tile": ck.launches, "stream_pass": mk.launches,
+                "flash_attention": fk.launches}
+    emit("service", step="done", launches=launches,
+         seconds=time.perf_counter() - started)
+    if any(launches.values()):
+        fail(f"service: kernels launched in this process: {launches}")
 
 
 def phase_serve(torch, np, rows):
@@ -1106,7 +1412,8 @@ def main() -> None:
     phase_build()
     rows = phase_kernels(torch, np)
     calib, per_iter_ms = phase_main_path(torch, rows)
-    phase_fleet(torch, calib, per_iter_ms)
+    fleet_profiles, fleet_refs = phase_fleet(torch, calib, per_iter_ms)
+    phase_service(torch, calib, fleet_profiles, fleet_refs)
     phase_serve(torch, np, rows)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

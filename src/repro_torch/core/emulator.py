@@ -67,11 +67,6 @@ class _Unset:
 
 UNSET = _Unset()
 
-#: what ``executor="remote"`` raises until the transport is ported
-REMOTE_TODO = ("the remote fleet executor is not ported yet (ROADMAP.md, "
-               "queue 2, item 4: fleet/transport and fleet/agent)")
-
-
 @dataclass
 class EmulationReport:
     command: str
@@ -618,12 +613,15 @@ class Emulator:
         Process pools can be elastic (``autoscale=True``): workers are
         spawned while queued bundles outnumber free slots and retired back
         to ``min_workers`` when the stream drains, with the scale record in
-        ``FleetReport.scaling``.  See ``repro_torch.fleet``.  Not ported
-        yet, and raising ``NotImplementedError``: ``FleetConfig.remote``
-        (the TCP transport) and a ``mesh_spec`` (the collective atom).
+        ``FleetReport.scaling``.  ``FleetConfig.remote(...)`` ships the
+        same bundles over framed TCP to host agents
+        (``python -m repro_torch.fleet.agent``), whose workers replay on
+        this emulator's device too.  See ``repro_torch.fleet``.  Not
+        ported yet, and raising ``NotImplementedError``: a ``mesh_spec``
+        (the collective atom).
 
-        ``config.timeout`` bounds each fleet run.  The process executor
-        enforces it strictly (the scheduler deadline); the thread
+        ``config.timeout`` bounds each fleet run.  The process and remote
+        executors enforce it strictly (the scheduler deadline); the thread
         executor stops *starting* profiles at the deadline and raises, but
         profiles already replaying run to completion — threads can't be
         preempted.
@@ -671,13 +669,26 @@ class Emulator:
                 "executors — the in-process thread pool has no dispatch "
                 "gating.  Use FleetConfig.process(...) or .remote(...)")
         cfg.check_collect(collect, dag=is_dag)
-        if cfg.executor == "remote":
-            raise NotImplementedError(REMOTE_TODO)
-        if cfg.executor == "process":
+        if cfg.executor in ("process", "remote"):
             if not (fused and self._fusable):
-                raise ValueError("executor='process' ships compiled "
-                                 "schedules and requires the fused torch "
-                                 "replay path (fused=True, backend='torch')")
+                raise ValueError(f"executor={cfg.executor!r} ships "
+                                 "compiled schedules and requires the fused "
+                                 "torch replay path (fused=True, "
+                                 "backend='torch')")
+            if cfg.executor == "remote":
+                from repro_torch.fleet.transport.remote import \
+                    run_remote_fleet
+                return run_remote_fleet(
+                    self, profiles, hosts=cfg.hosts, listen=cfg.listen,
+                    agents=cfg.agents, mesh_spec=cfg.mesh_spec,
+                    flops_scale=flops_scale, storage_scale=storage_scale,
+                    mem_scale=mem_scale, verify=verify,
+                    timeout=cfg.timeout, window=cfg.window,
+                    autoscale=cfg.autoscale, min_workers=cfg.min_workers,
+                    max_attempts=cfg.max_attempts,
+                    liveness_timeout=cfg.liveness_timeout,
+                    speculate=cfg.speculate, on_failure=cfg.on_failure,
+                    chaos=cfg.chaos, collect=collect)
             from repro_torch.fleet.executor import run_process_fleet
             return run_process_fleet(self, profiles,
                                      max_workers=cfg.max_workers,

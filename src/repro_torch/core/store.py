@@ -113,10 +113,11 @@ class ProfileStore:
         within each key (superset tag match, like ``find``; no filter
         streams the whole store).
 
-        This is the fleet-feeding path (the fleet is not ported yet): it
-        replays a store's worth of captured profiles without
-        materializing every document up front — the first step toward
-        replay-the-production-day fleets that outsize memory.  The index
+        This is the fleet-feeding path (``run_fleet(profiles=...)``, the
+        scenarios CLI's ``fleet --from-store``): it replays a store's
+        worth of captured profiles without materializing every document
+        up front — the first step toward replay-the-production-day
+        fleets that outsize memory.  The index
         is snapshotted once at the first ``next()``; runs added
         afterwards appear in the next ``stream`` call.
         """

@@ -23,6 +23,15 @@ def resolve(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+def cli_device(device: str, prog: str) -> torch.device:
+    """``resolve`` for a command line: a device that is missing ends the
+    program with a non-zero exit and a message naming it."""
+    try:
+        return resolve(device)
+    except RuntimeError as e:
+        raise SystemExit(f"{prog}: error: --device {device}: {e}") from None
+
+
 def sync(token) -> None:
     """Wait until the device work that produced ``token`` is done.
 

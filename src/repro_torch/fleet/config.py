@@ -37,8 +37,7 @@ import warnings
 from dataclasses import dataclass, fields
 from typing import Dict, Optional, Sequence, Tuple
 
-from repro_torch.core.emulator import (REMOTE_TODO, UNSET, VALID_EXECUTORS,
-                                       _Unset)
+from repro_torch.core.emulator import UNSET, VALID_EXECUTORS, _Unset
 from repro_torch.fleet.bundle import MeshSpec
 from repro_torch.fleet.chaos import ChaosPolicy
 
@@ -231,11 +230,10 @@ class FleetConfig:
                           device=device)
 
     def build(self, spec: "WorkerSpec"):
-        """Construct the live pool (``ProcessFleet``) this config
-        describes.  Only the process and remote executors *have* a
-        standing pool to build — the thread path replays in-process and
-        raises here, and the remote transport is not ported yet.  The
-        caller owns the returned fleet's lifecycle."""
+        """Construct the live pool (``ProcessFleet`` / ``RemoteFleet``)
+        this config describes.  Only those two executors *have* a standing
+        pool to build — the thread path replays in-process and raises
+        here.  The caller owns the returned fleet's lifecycle."""
         if self.executor == "process":
             from repro_torch.fleet.executor import ProcessFleet
             return ProcessFleet(self.max_workers, spec,
@@ -243,7 +241,11 @@ class FleetConfig:
                                 min_workers=self.min_workers,
                                 max_respawns=self.max_respawns)
         if self.executor == "remote":
-            raise NotImplementedError(REMOTE_TODO)
+            from repro_torch.fleet.transport.remote import RemoteFleet
+            return RemoteFleet(spec, hosts=self.hosts, listen=self.listen,
+                               agents=self.agents,
+                               autoscale=self.autoscale,
+                               min_workers=self.min_workers)
         raise ValueError(
             "only executor='process' or 'remote' can build a standing "
             f"worker pool; executor={self.executor!r} replays in-process")
@@ -297,9 +299,11 @@ class FleetConfig:
                chaos: Optional[ChaosPolicy] = None,
                dag: bool = False,
                timeout: float = 600.0) -> "FleetConfig":
-        """TCP host agents: dial ``hosts`` and/or ``listen`` for dial-in
-        agents.  The config validates as the JAX package's does; running it
-        raises until the remote transport is ported."""
+        """TCP host agents (``repro_torch.fleet.RemoteFleet``): dial
+        ``hosts`` and/or ``listen`` for dial-in agents.  With ``autoscale``
+        the open listener keeps inviting late joiners mid-run and idle
+        agents are released once the stream drains (``min_workers`` agents
+        are kept)."""
         return cls(executor="remote",
                    hosts=tuple(hosts) if hosts else None, listen=listen,
                    agents=agents, mesh_spec=mesh, autoscale=autoscale,

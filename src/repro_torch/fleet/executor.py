@@ -29,10 +29,13 @@ source is exhausted idle peers are retired back down to the floor
 ``ProcessFleet`` is the local instantiation: each peer is one spawn-based
 worker process (see ``repro_torch.fleet.worker``) behind a multiprocessing
 ``Pipe``, with its own CUDA context, emulator and plan cache on the device
-its ``WorkerSpec`` names.  The JAX package also has a network
-instantiation (TCP peers fronting host agents); the port's is not written
-yet, and it will inherit the same scheduling semantics, which is the point
-— a dead TCP peer is reaped exactly like a dead process.
+its ``WorkerSpec`` names.
+``repro_torch.fleet.transport.remote.RemoteFleet`` is the network
+instantiation: each peer is a TCP connection to a host agent that fronts
+several such worker processes on another machine.  Both inherit the same
+scheduling semantics, which is the point — a dead TCP peer is reaped
+exactly like a dead process, and its in-flight bundles requeue onto the
+survivors.
 
 Scheduling is work-stealing-simple: one in-flight bundle per worker slot,
 next bundle to the first slot that frees up, so a straggler profile never

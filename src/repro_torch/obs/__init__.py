@@ -20,15 +20,23 @@
     histograms backed by ``repro_torch.service.slo.LatencySketch``),
     snapshotted into ``FleetReport.obs``.
 
-The Perfetto trace exporter (``trace`` in the JAX package) is not ported
-yet.  Nothing here touches a device.
+``trace``
+    Chrome trace-event JSON export (Perfetto-loadable): one track per
+    worker or agent, spans from ``BundleTiming`` enqueue→dispatch→done,
+    instant events for faults and scales, SLO windows as counter tracks.
+    For the same events it builds the same trace as the JAX package.
+
+Nothing here touches a device.
 """
 from repro_torch.obs.clock import ClockSync, anchor, now, wall
 from repro_torch.obs.metrics import MetricsRegistry, parse_promtext
 from repro_torch.obs.recorder import Event, FlightRecorder, ObsFrame
+from repro_torch.obs.trace import (slo_windows_ms, to_chrome_trace,
+                                   validate_trace, write_trace)
 
 __all__ = [
     "ClockSync", "anchor", "now", "wall",
     "Event", "FlightRecorder", "ObsFrame",
+    "slo_windows_ms", "to_chrome_trace", "validate_trace", "write_trace",
     "MetricsRegistry", "parse_promtext",
 ]

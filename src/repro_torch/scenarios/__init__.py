@@ -20,9 +20,9 @@ process fleet for frontier-scheduled replay with critical-path metrics in
 ``driver.run_scenario`` wires a scenario end-to-end
 (generate -> predict -> emulate -> store); ``driver.run_fleet`` replays many
 concurrently through ``Emulator.emulate_many`` — on worker threads, or on
-the process-level fleet executor (``repro_torch.fleet``).  The
-command-line front door of the JAX package (``__main__``) is not ported
-yet.
+the process-level fleet executor (``repro_torch.fleet``).  ``__main__``
+is the command-line front door: ``python -m repro_torch.scenarios
+list|run|fleet|serve|trace``.
 """
 from repro_torch.scenarios import (dag, fanout, mixed, retry,  # noqa
                                    serving, training)

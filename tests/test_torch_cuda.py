@@ -201,3 +201,27 @@ def test_process_fleet_on_the_card(dev):
         infos = pf.warmup(timeout=300.0)
     assert [i["device"] for i in infos] == \
         [torch.cuda.get_device_name(0)] * 2
+
+
+def test_standing_fleet_session_on_the_card(dev):
+    """A warm 1-worker ``StandingFleet`` on the card serves a 2-request
+    session: both requests replay fused on the card's worker, each to the
+    in-process replay's consumed amounts."""
+    from repro_torch.service import StandingFleet
+    em = Emulator(calib=HostCalibration(1e9, 1e9, 1e8, 1e8),
+                  compute_tile=64, mem_block=1 << 18)
+    jobs = [generate("fanout_straggler", n_workers=4, work_flops=2e7,
+                     work_hbm=4e6), generate("retry_storm", seed=2)]
+    want = [em.emulate(p, fused=True).consumed for p in jobs]
+    em.storage.cleanup()
+    got = {}
+    with StandingFleet(em, FleetConfig.process(max_workers=1)) as sf:
+        info, = sf.warmup(timeout=300.0)
+        sf.on_complete(lambda rec, rep: got.update({rec.idx: rep}))
+        for p in jobs:
+            sf.submit(p)
+        res = sf.drain(timeout=300.0)
+    assert info["device"] == torch.cuda.get_device_name(0)
+    assert res.n_ok == 2 and [r.ok for r in res.records] == [True, True]
+    assert [got[i].consumed for i in range(2)] == want
+    assert all(got[i].mode == "fused" for i in range(2))

@@ -423,10 +423,13 @@ def test_thread_fleet_skip_window_and_errors_like_reference(tmp_path):
 def test_unported_fleet_paths_raise_not_implemented():
     em = _em("torch")
     jobs = _jobs("torch")[:1]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        em.emulate_many(jobs, config=TF.FleetConfig.remote(["h:1"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TF.FleetConfig.remote(["h:1"]).build(None)
+    # the remote executor is ported: its config builds a RemoteFleet
+    # (listening on a free port here, so nothing is dialled)
+    spec = TF.FleetConfig.remote(listen="127.0.0.1:0").worker_spec(
+        em.spec(), device="cpu")
+    with TF.FleetConfig.remote(listen="127.0.0.1:0").build(spec) as fleet:
+        assert isinstance(fleet, TF.RemoteFleet)
+        assert fleet.spec.device == "cpu" and fleet.bound_addr[1] > 0
     mesh = TF.MeshSpec(shape=(2,), axes=("model",))
     assert mesh.device_count == 2
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -21,11 +21,17 @@ SLICE = [
     "repro_torch.core.store", "repro_torch.core.watchers",
     "repro_torch.obs", "repro_torch.obs.clock",
     "repro_torch.obs.recorder", "repro_torch.obs.metrics",
+    "repro_torch.obs.trace",
     "repro_torch.service", "repro_torch.service.slo",
+    "repro_torch.service.arrivals", "repro_torch.service.standing",
+    "repro_torch.service.load", "repro_torch.service.http",
+    "repro_torch.service.__main__",
     "repro_torch.fleet", "repro_torch.fleet.bundle",
     "repro_torch.fleet.chaos", "repro_torch.fleet.config",
     "repro_torch.fleet.dag", "repro_torch.fleet.executor",
-    "repro_torch.fleet.worker",
+    "repro_torch.fleet.worker", "repro_torch.fleet.agent",
+    "repro_torch.fleet.transport", "repro_torch.fleet.transport.framing",
+    "repro_torch.fleet.transport.remote",
     "repro_torch.kernels", "repro_torch.kernels.build",
     "repro_torch.kernels.compute_atom",
     "repro_torch.kernels.compute_atom.kernel",
@@ -40,6 +46,7 @@ SLICE = [
     "repro_torch.scenarios.training", "repro_torch.scenarios.fanout",
     "repro_torch.scenarios.retry", "repro_torch.scenarios.mixed",
     "repro_torch.scenarios.dag", "repro_torch.scenarios.driver",
+    "repro_torch.scenarios.__main__",
     "repro_torch.kernels.flash_attention",
     "repro_torch.kernels.flash_attention.kernel",
     "repro_torch.kernels.flash_attention.ops",
@@ -97,7 +104,7 @@ def test_port_sources_name_no_jax_or_repro():
     files = list(_port_files())
     assert len(files) > 20
     # the scan reaches every subpackage, this slice's included
-    for sub in ("fleet", "obs", "service", "scenarios"):
+    for sub in ("fleet", "obs", "service", "scenarios", "transport"):
         assert any(os.sep + sub + os.sep in f for f in files), sub
     for path in files:
         with open(path) as f:
