@@ -8,9 +8,11 @@ Paper §IV-B, on a CUDA card:
                      ``"torch"`` (a loop of PyTorch ops) or ``"cuda"``, the
                      hand-written kernel in ``repro_torch.kernels.compute_atom``.
   * MemoryAtom     — streams a target byte count through device memory
-                     (``"cuda"``: the kernel in
-                     ``repro_torch.kernels.memory_atom``; ``"torch"``: a
-                     scaled copy loop).
+                     (``"cuda"``: the ring entry of the kernel in
+                     ``repro_torch.kernels.memory_atom``, in-place passes
+                     over a ring of blocks several times the L2's size,
+                     made once per atom; ``"torch"``: a scaled copy loop,
+                     whose block stays in L2 on a card).
   * StorageAtom    — block-wise file write/read (libc read/write, unchanged
                      from the paper; block size is the tunable the paper
                      discusses in §IV-E.3).
@@ -40,7 +42,7 @@ from repro_torch.core.calibrate import HostCalibration
 from repro_torch.core.hardware import HardwareSpec
 from repro_torch.device import DeviceLike, resolve, sync
 from repro_torch.kernels.compute_atom import ops as catom_ops
-from repro_torch.kernels.memory_atom import ops as matom_ops
+from repro_torch.kernels.memory_atom.kernel import Ring, stream_ring
 
 #: atom backends: a loop of PyTorch ops, or the hand-written CUDA kernels
 #: (which run their plain versions on CPU tensors)
@@ -392,11 +394,8 @@ class MemoryAtom(Atom):
         self.block_bytes = block_bytes
         self.backend = check_backend(backend)
         self.device = resolve(device)
-        if backend == "cuda":
-            self._fn = lambda x, iters: matom_ops.stream(
-                x, iters=iters, block_bytes=block_bytes)
-        else:
-            self._fn = _torch_stream
+        self._ring: Optional[Ring] = None
+        self._ring_lock = threading.Lock()
 
     def spec(self) -> MemorySpec:
         return MemorySpec(block_bytes=self.block_bytes, backend=self.backend)
@@ -416,10 +415,25 @@ class MemoryAtom(Atom):
         key = ("memory", self.backend, self.block_bytes, iters)
         return self._cached(key, lambda: self._build_plan(iters))
 
+    def ring(self) -> Ring:
+        """The ``"cuda"`` backend's ring, made (and filled) at first use and
+        shared by every plan of this atom: a pass streams a block that no
+        pass touched for ``slots - 1`` passes, so it reads device memory,
+        not L2.  Never re-copied per call, which would be device traffic
+        that no profile planned."""
+        if self._ring is None:
+            with self._ring_lock:
+                if self._ring is None:
+                    self._ring = Ring(self.block_bytes, self.device)
+        return self._ring
+
     def _build_plan(self, iters: int) -> Plan:
-        fn = self._fn
+        amount = iters * self.bytes_per_iter()
+        if self.backend == "cuda":
+            ring = self.ring()
+            return Plan(lambda: stream_ring(ring, passes=iters), amount)
         x = memory_operand(self.block_bytes, self.device)
-        return Plan(lambda: fn(x, iters), iters * self.bytes_per_iter())
+        return Plan(lambda: _torch_stream(x, iters), amount)
 
     def seconds(self, nbytes: float, hw: HardwareSpec) -> float:
         bw = hw.hbm_bw * hw.hbm_derate

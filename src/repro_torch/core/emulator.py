@@ -11,17 +11,20 @@ shrinking with finer sampling (paper Fig. 2).
 
 Two execution paths share that contract:
 
-  * **fused** (default, ``"torch"`` backend): the schedule compiler
+  * **fused** (default): the schedule compiler
     (``repro_torch.core.schedule``) packs contiguous storage-free runs into
     iteration tables, each executed as ONE segment dispatch with one sync,
     so an M-sample profile costs O(storage-segment boundaries) dispatches
     instead of O(M × atoms); sample ordering is preserved inside the
-    segment.  Runs with a storage leg replay per-sample between segments
-    (the I/O interleave is the point of the barrier).
-  * **per-sample** (``fused=False``, or the ``"cuda"`` kernel backend, whose
-    kernels take no iteration table): one plan per atom per collapsed run.
-    Identical consecutive samples (a layer scan) are planned once and
-    executed as a single scaled consumption.
+    segment.  On the ``"cuda"`` backend a segment is one launch of the
+    table-driven segment kernel (compute tiles 64, 128 and 256, the burn's
+    cluster tiles); on ``"torch"`` the table is walked on the host issuing
+    PyTorch ops.  Runs with a storage leg replay per-sample between
+    segments (the I/O interleave is the point of the barrier).
+  * **per-sample** (``fused=False``, or ``"cuda"`` at any other tile): one
+    plan per atom per collapsed run.  Identical consecutive samples (a
+    layer scan) are planned once and executed as a single scaled
+    consumption.
 
 Both paths consume the profile's resource vectors in the same order with
 the same count-scaling, so reported ``consumed`` totals are bit-identical
@@ -48,6 +51,7 @@ from repro_torch.core.metrics import ResourceVector, Sample, SynapseProfile
 from repro_torch.core.schedule import (CompiledSchedule, FusedSegment,
                                        SegmentRunner, compile_schedule)
 from repro_torch.device import DeviceLike, resolve, sync
+from repro_torch.kernels.segment.kernel import TILES as SEGMENT_TILES
 
 #: fleet backends ``emulate_many``/``run_fleet`` accept (see
 #: ``repro_torch.fleet``)
@@ -360,8 +364,9 @@ class Emulator:
                  efficiency: float = 1.0, speed: float = 1.0,
                  plan_cache: Optional[PlanCache] = None,
                  device: DeviceLike = None):
-        """``backend``: ``"torch"`` (PyTorch ops, fusable) or ``"cuda"``
-        (the hand-written kernels, replayed per sample); ``efficiency``:
+        """``backend``: ``"torch"`` (PyTorch ops) or ``"cuda"`` (the
+        hand-written kernels: fused through the segment kernel at compute
+        tiles 64, 128 and 256, per sample at others); ``efficiency``:
         paper's CPU-efficiency knob (see ComputeAtom); ``speed`` scales
         resource amounts (emulate faster/slower hosts); ``plan_cache``:
         share planned atoms across emulators of one device; ``device``:
@@ -380,12 +385,12 @@ class Emulator:
         self.speed = speed
         self.plan_cache = None
         self._fleet_lock = threading.Lock()
-        # Fused segments need table-driven loop counts, which the CUDA atom
-        # kernels don't take; that backend replays per sample.
-        self._fusable = backend == "torch"
+        # the segment kernel burns at the compute atom's cluster tiles only
+        self._fusable = backend == "torch" or compute_tile in SEGMENT_TILES
         self._segments = SegmentRunner(tile=compute_tile,
                                        block_bytes=mem_block,
-                                       device=self.device)
+                                       device=self.device, backend=backend,
+                                       ring=self.memory.ring)
         if plan_cache is not None:
             self.set_plan_cache(plan_cache)
 
@@ -671,10 +676,11 @@ class Emulator:
         cfg.check_collect(collect, dag=is_dag)
         if cfg.executor in ("process", "remote"):
             if not (fused and self._fusable):
-                raise ValueError(f"executor={cfg.executor!r} ships "
-                                 "compiled schedules and requires the fused "
-                                 "torch replay path (fused=True, "
-                                 "backend='torch')")
+                raise ValueError(
+                    f"executor={cfg.executor!r} ships compiled schedules "
+                    "and requires the fused replay path (fused=True; "
+                    "backend='torch', or backend='cuda' at compute tile "
+                    f"{', '.join(map(str, SEGMENT_TILES))})")
             if cfg.executor == "remote":
                 from repro_torch.fleet.transport.remote import \
                     run_remote_fleet

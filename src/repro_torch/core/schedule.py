@@ -28,24 +28,27 @@ bit-identically.  Wire-byte quantization is a picklable
 here, but executing its wire rows needs the collective atom, which is not
 ported yet, so replaying it raises.
 
-Tables are padded to power-of-two lengths with all-zero no-op rows, so a
-table-driven segment kernel compiles at most O(log max-segment-length)
-variants per (tile, block) configuration.
+Tables are padded to power-of-two lengths with all-zero no-op rows, as
+the JAX package pads them (its jit compiles one program per padded
+length); the segment kernel skips them on the device.
 """
 from __future__ import annotations
 
 import threading
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Union
+from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
 
 from repro_torch.core.atoms import (COLLECTIVE_TODO, CollectiveQuant,
-                                    ComputeAtom, MemoryAtom,
+                                    ComputeAtom, MemoryAtom, check_backend,
                                     compute_burn_body, compute_operand,
                                     memory_operand, memory_stream_body)
 from repro_torch.core.metrics import ResourceVector
 from repro_torch.device import DeviceLike, resolve, sync
+from repro_torch.kernels.memory_atom.kernel import Ring
+from repro_torch.kernels.segment import ops as segment_ops
+from repro_torch.kernels.segment.kernel import SegmentRun
 
 
 @dataclass
@@ -272,61 +275,83 @@ def _next_pow2(n: int) -> int:
 class SegmentRunner:
     """Executes FusedSegment iteration tables, one dispatch each.
 
-    The counterpart of the JAX package's jitted ``lax.scan``: the padded
-    table is walked on the host and each row issues its iterations as
-    PyTorch ops on the device — ``row[0]`` compute-burn iterations on the
-    tile, then ``row[1]`` memory-stream iterations on the block — with one
-    sync at the end of the segment.  On a card every iteration is several
-    CUDA launches issued from the host; a table-driven segment kernel is
-    later work.
+    The counterpart of the JAX package's jitted ``lax.scan``, per backend:
+
+      * ``"cuda"``: ONE launch of the table-driven segment kernel
+        (``repro_torch.kernels.segment``, ``csrc/segment.cu``), which reads
+        the table from device memory and runs each row's burn iterations
+        (the compute atom's cluster burn, carrying y across rows) and ring
+        passes (the memory atom's ring, its pass counter carried across
+        rows and launches), with a grid barrier between rows.  Tiles 64,
+        128 and 256 only; any other tile raises.  ``run`` checks the
+        kernel's device counters against the table after its sync.
+      * ``"torch"``: the padded table is walked on the host and each row
+        issues its iterations as PyTorch ops — ``row[0]`` compute-burn
+        iterations on the tile, then ``row[1]`` memory-stream iterations on
+        the block — with one sync at the end of the segment; on a card
+        every iteration is several CUDA launches issued from the host.
 
     Runs are specialized to the carries a segment actually needs — a
     compute-only segment does not touch the (potentially tens-of-MB)
     memory block, matching the per-sample path where a zero-iteration
-    amount plans to a noop.  Safe to share across threads: operand init is
-    guarded and operands are read-only.
+    amount plans to a noop.  ``ring`` returns the ring the ``"cuda"``
+    passes stream: the Emulator passes its ``MemoryAtom.ring``, so its
+    per-sample plans and its segments share one ring and one pass count;
+    a runner built alone streams the ring of a ``MemoryAtom`` of its own.
+    Safe to share across threads: operand init is guarded, operands are
+    read-only, and ring passes are numbered under the ring's lock.
     """
 
     def __init__(self, tile: int = 256, block_bytes: int = 1 << 24,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, backend: str = "torch",
+                 ring: Optional[Callable[[], Ring]] = None):
         self.tile = tile
         self.block_bytes = block_bytes
         self.device = resolve(device)
+        self.backend = check_backend(backend)
         self._lock = threading.Lock()
         self._xc = None
         self._xm = None
+        self._ring = ring or MemoryAtom(block_bytes=block_bytes,
+                                        backend=backend,
+                                        device=self.device).ring
+
+    def _compute_operand(self):
+        if self._xc is None:
+            with self._lock:
+                if self._xc is None:
+                    self._xc = compute_operand(self.tile, self.device)
+        return self._xc
 
     def _operands(self):
         if self._xm is None:
+            self._compute_operand()
             with self._lock:
                 if self._xm is None:
                     # atom-shared constructors: a fused iteration must cost
-                    # exactly what an atom iteration costs.  _xm is the
-                    # publish flag — it is assigned last, so a racing reader
-                    # never sees one operand without the other.
-                    self._xc = compute_operand(self.tile, self.device)
+                    # exactly what an atom iteration costs
                     self._xm = memory_operand(self.block_bytes, self.device)
         return self._xc, self._xm
 
     @staticmethod
-    def _segment(carry, table: np.ndarray, with_c: bool, with_m: bool):
-        carry = list(carry)
+    def _segment(y, m, table: np.ndarray):
+        """Walk ``table`` on the host; ``y`` (the compute carry) or ``m``
+        (the memory carry) is None when no row uses it."""
         for ci, mi, _ in table.tolist():
-            k = 0
-            if with_c:
+            if y is not None:
                 for _ in range(ci):
-                    carry[k] = compute_burn_body(carry[k])
-                k += 1
-            if with_m:
+                    y = compute_burn_body(y)
+            if m is not None:
                 for _ in range(mi):
-                    carry[k] = memory_stream_body(carry[k])
-        return tuple(carry)
+                    m = memory_stream_body(m)
+        return y, m
 
     def launch(self, segment: FusedSegment):
         """Issue the whole segment asynchronously; returns the unsynced
-        carry (a tuple of tensors; wait with ``repro_torch.device.sync``),
-        or ``None`` when every row quantized to zero iterations (nothing to
-        dispatch)."""
+        ``SegmentRun`` — ``y``, the compute carry, and ``slot``, the memory
+        carry, either None when no row uses it; wait for them with
+        ``repro_torch.device.sync``, then ``settle()`` it — or ``None`` when
+        every row quantized to zero iterations (nothing to dispatch)."""
         with_c = segment.compute_iters > 0
         with_m = segment.memory_iters > 0
         if segment.collective_iters > 0:
@@ -339,19 +364,21 @@ class SegmentRunner:
         padded = _next_pow2(segment.n_rows)
         table = np.zeros((padded, 3), dtype=np.int32)
         table[:segment.n_rows] = segment.table
+        if self.backend == "cuda":
+            return segment_ops.segment(
+                table, x=self._compute_operand() if with_c else None,
+                ring=self._ring() if with_m else None)
         xc, xm = self._operands()
-        carry = []
-        if with_c:
-            carry.append(xc)
-        if with_m:
-            carry.append(xm)
-        return self._segment(tuple(carry), table, with_c, with_m)
+        return SegmentRun(*self._segment(xc if with_c else None,
+                                         xm if with_m else None, table))
 
     def run(self, segment: FusedSegment) -> bool:
-        """Dispatch and sync: the segment's samples are done on return.
-        Returns False when the segment was all-noop (no dispatch issued)."""
-        token = self.launch(segment)
-        if token is None:
+        """Dispatch, sync and settle: the segment's samples are done on
+        return.  Returns False when the segment was all-noop (no dispatch
+        issued)."""
+        run = self.launch(segment)
+        if run is None:
             return False
-        sync(token)
+        sync((run.y, run.slot))
+        run.settle()
         return True

@@ -29,6 +29,7 @@
 //      shared memory, `map_shared_rank`), or into `out` on the last
 //      iteration;
 //   3. one cluster barrier publishes y_{t+1} to both CTAs.
+// (The cluster's device code is in burn.cuh, shared with csrc/segment.cu.)
 // The panel is double-buffered, so the one barrier also keeps a CTA from
 // overwriting a copy that the other still reads.  Why 2 CTAs and not 8:
 // the shared-memory loads of y bound step 1, and a warp loads each y value
@@ -44,6 +45,8 @@
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "burn.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -95,131 +98,27 @@ cudaError_t burn_per_iteration(const float* x, float* out, float* scratch,
   return cudaSuccess;
 }
 
-constexpr int kCluster = 2;    // CTAs a cluster
-constexpr int kRows = 4;       // rows of a panel
-constexpr int kThreads = 256;  // threads a CTA
-constexpr int kWarps = kThreads / 32;
-
-template <int T>
-struct Burn {
-  static constexpr int W = T / kCluster;  // columns a CTA
-  static constexpr int CW = W / 32;       // columns a lane
-  static constexpr int KG = T / kWarps;   // k a warp
-  static_assert(CW >= 1 && CW <= 4 && KG % 4 == 0, "shape");
-  // two copies of the panel [kRows][T], then the partials [kRows][8][W]
-  static constexpr size_t kSmem =
-      (2 * size_t(kRows) * T + size_t(kRows) * kWarps * W) * sizeof(float);
-};
-
-template <int N>
-__device__ __forceinline__ void store(float* p, const float (&v)[N]) {
-  if constexpr (N == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  } else if constexpr (N == 2) {
-    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-  } else {
-    *p = v[0];
-  }
-}
+using synapse::Burn;
+using synapse::kCluster;
+using synapse::kRows;
+using synapse::kThreads;
 
 template <int T>
 __global__ void __launch_bounds__(kThreads)
     burn_cluster(const float* __restrict__ x, float* __restrict__ out,
                  int64_t iters) {
   using B = Burn<T>;
-  constexpr int W = B::W, CW = B::CW, KG = B::KG;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());  // slice C_rank
   const int64_t row0 = int64_t(blockIdx.x / kCluster) * kRows;
   extern __shared__ float4 smem4[];
-  float* panel = reinterpret_cast<float*>(smem4);  // [2][kRows][T]
-  float* part = panel + 2 * kRows * T;             // [kRows][kWarps][W]
-
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;  // this warp's k: [warp KG, +KG)
-  const int c0 = lane * CW;           // this lane's columns of C_rank
-  float xr[KG][CW];
-#pragma unroll
-  for (int kk = 0; kk < KG; ++kk) {
-#pragma unroll
-    for (int j = 0; j < CW; ++j) {
-      xr[kk][j] = x[int64_t(warp * KG + kk) * T + rank * W + c0 + j];
-    }
-  }
-  // y0 = x: both CTAs of the cluster load the panel's rows themselves
-  for (int i = threadIdx.x; i < kRows * T / 4; i += kThreads) {
-    reinterpret_cast<float4*>(panel)[i] =
-        reinterpret_cast<const float4*>(x + row0 * T)[i];
-  }
+  float* panel = reinterpret_cast<float*>(smem4);  // [2][kRows][T], partials
+  float xr[B::KG][B::CW];
+  synapse::burn_load_x<T>(x, rank, xr);
+  synapse::burn_load_panel<T>(x, row0, panel);
   // also: no CTA stores into the other's shared memory before it runs
   cluster.sync();
-
-  for (int64_t it = 0; it < iters; ++it) {
-    const float* y = panel + (it & 1) * kRows * T;
-    float* ynext = panel + ((it + 1) & 1) * kRows * T;
-    // kRows x CW independent sums a thread; every y value a warp loads
-    // (one address: a broadcast) feeds 32 CW FMAs
-    float acc[kRows][CW];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-#pragma unroll
-      for (int j = 0; j < CW; ++j) acc[r][j] = 0.0f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < KG; kk += 4) {
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 yv =
-            *reinterpret_cast<const float4*>(y + r * T + warp * KG + kk);
-#pragma unroll
-        for (int j = 0; j < CW; ++j) {
-          acc[r][j] = fmaf(yv.x, xr[kk][j], acc[r][j]);
-          acc[r][j] = fmaf(yv.y, xr[kk + 1][j], acc[r][j]);
-          acc[r][j] = fmaf(yv.z, xr[kk + 2][j], acc[r][j]);
-          acc[r][j] = fmaf(yv.w, xr[kk + 3][j], acc[r][j]);
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      store(part + (r * kWarps + warp) * W + c0, acc[r]);
-    }
-    __syncthreads();
-    const bool last = it + 1 == iters;
-    if (threadIdx.x < kRows * W / 4) {  // 4 columns a reducing thread
-      const int r = threadIdx.x / (W / 4);
-      const int cc = (threadIdx.x % (W / 4)) * 4;
-      float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        const float4 p =
-            *reinterpret_cast<const float4*>(part + (r * kWarps + w) * W + cc);
-        s.x += p.x;
-        s.y += p.y;
-        s.z += p.z;
-        s.w += p.w;
-      }
-      // s * 0.5 is exact, so the fused form rounds like the two-step one
-      const float4 v = make_float4(fmaf(s.x, 0.5f, 0.25f),
-                                   fmaf(s.y, 0.5f, 0.25f),
-                                   fmaf(s.z, 0.5f, 0.25f),
-                                   fmaf(s.w, 0.5f, 0.25f));
-      const int col = rank * W + cc;
-      if (last) {
-        *reinterpret_cast<float4*>(out + (row0 + r) * T + col) = v;
-      } else {
-#pragma unroll
-        for (int q = 0; q < kCluster; ++q) {
-          float* dst = cluster.map_shared_rank(ynext, q);
-          *reinterpret_cast<float4*>(dst + r * T + col) = v;
-        }
-      }
-    }
-    // y_{t+1} is in both CTAs' panels, and both are done with y_t and with
-    // the partials; after the last iteration neither touches the other's
-    // shared memory, so no barrier is needed before exiting
-    if (!last) cluster.sync();
-  }
+  synapse::burn_iterations<T>(xr, panel, rank, row0, 0, iters, out, cluster);
 }
 
 template <int T>

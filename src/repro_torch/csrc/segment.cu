@@ -1,0 +1,243 @@
+// The fused segment loop for Hopper (sm_90a): one launch a segment.
+//
+// Replaces src/repro/core/schedule.py:SegmentRunner._fn (not a Pallas
+// kernel: a jitted lax.scan over the segment's padded int32 (n, 3) table).
+// Per row r, in row order:
+//   * row[r][0] iterations of the burn, y <- (y @ x) * 0.5 + 0.25 (float32
+//     with FMA, no TF32), y starting at x and carried across rows, so after
+//     the segment y == burn_tile(x, iters = sum of row[.][0]);
+//   * row[r][1] in-place passes over the memory atom's ring, continuing the
+//     ring's pass counter (`start`) across rows and launches;
+//   * row[r][2], the collective steps, is never > 0 here: the host raises
+//     before launching a mesh-bound segment.
+// Row r + 1 starts only when every CTA has finished row r: the emulator's
+// sample barrier (core/emulator.py), here a grid barrier between non-empty
+// rows.  Within a row the CTAs that own no burn panel start streaming while
+// the others burn, so the two legs may overlap.  Rows with no work (zero
+// rows, and the table's pow2 padding) are skipped without a barrier.
+//
+// Bound.  The burn's float32 FMA rate (2 T^3 flops an iteration at 67
+// TFLOP/s) and the ring's device-memory rate (2 * block bytes a pass at
+// 3.35 TB/s), in sequence within a row as in the scan.
+//
+// Design.
+//   * The compute leg is the burn's cluster design (burn.cuh, shared with
+//     csrc/compute_atom.cu): 2-CTA clusters, each owning a 4-row panel of
+//     y, x's column slice in registers, one cluster barrier an iteration.
+//     Panels never depend on each other, so a burn needs no grid barrier.
+//     The panel stays in shared memory across rows; the CTAs write it to
+//     `out` once, after the last row.  Tiles 64, 128 and 256 only: T / 2
+//     CTAs burn (128 at tile 256, one an SM).
+//   * The memory leg is the ring pass (ring.cuh): every CTA of the grid
+//     owns a fixed slice of every slot, so pass p + 1 never waits on
+//     another CTA's pass p and a row needs no barrier inside it.
+//   * The grid is one CTA an SM, at most 2 * the active clusters that
+//     cudaOccupancyMaxActiveClusters reports, and at least the burn's CTAs.
+//   * The row barrier is cg::this_grid().sync(), so the kernel REQUIRES a
+//     cooperative launch: cudaLaunchKernelEx with
+//     cudaLaunchAttributeCooperative beside the cluster dimension, which
+//     the driver takes only for a grid it can hold resident at once.  A
+//     launch that is refused returns its error; there is no launch
+//     without the attribute.  Segment launches of one process go to the
+//     current stream (a thread fleet shares it), so they serialize;
+//     kernels of other processes time-slice the card whole.
+//   * Device counters: each CTA adds the burn iterations it ran and the
+//     ring passes it streamed to counts[0] and counts[1] once, at its end;
+//     the host checks counts[0] == sum(row[0]) * burn CTAs and counts[1] ==
+//     sum(row[1]) * grid after its sync.
+#include <atomic>
+#include <cstdint>
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+
+#include "burn.cuh"
+#include "ring.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+using synapse::Burn;
+using synapse::kCluster;
+using synapse::kRows;
+using synapse::kThreads;
+
+template <int T>
+__global__ void __launch_bounds__(kThreads, 1)
+    segment_kernel(const int* __restrict__ table, int n_rows,
+                   const float* __restrict__ x, float* __restrict__ out,
+                   float4* __restrict__ ring, int64_t nvec, int64_t slots,
+                   int64_t start, int64_t total_ci,
+                   unsigned long long* counts) {
+  using B = Burn<T>;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  // uniform within a cluster: B::kCtas is a multiple of kCluster
+  const bool burns = total_ci > 0 && blockIdx.x < B::kCtas;
+  const int64_t row0 = int64_t(blockIdx.x / kCluster) * kRows;
+  extern __shared__ float4 smem4[];
+  float* panel = reinterpret_cast<float*>(smem4);
+  float xr[B::KG][B::CW];
+  if (burns) {
+    synapse::burn_load_x<T>(x, rank, xr);
+    synapse::burn_load_panel<T>(x, row0, panel);
+    // no CTA stores into the other's shared memory before it runs
+    cluster.sync();
+  }
+  cg::grid_group grid = cg::this_grid();
+  int64_t it = 0, pass = start;
+  bool started = false;
+  for (int r = 0; r < n_rows; ++r) {
+    const int ci = table[3 * r];
+    const int mi = table[3 * r + 1];
+    if (ci <= 0 && mi <= 0) continue;
+    if (started) grid.sync();
+    started = true;
+    if (burns && ci > 0) {
+      synapse::burn_iterations<T>(xr, panel, rank, row0, it, ci, nullptr,
+                                  cluster);
+      it += ci;
+    }
+    if (mi > 0) {
+      synapse::ring_passes(ring, nvec, slots, pass, mi, blockIdx.x,
+                           gridDim.x);
+      pass += mi;
+    }
+  }
+  if (burns) synapse::burn_store_panel<T>(panel, rank, row0, it, out);
+  if (threadIdx.x == 0) {
+    atomicAdd(counts, static_cast<unsigned long long>(burns ? it : 0));
+    atomicAdd(counts + 1, static_cast<unsigned long long>(pass - start));
+  }
+}
+
+template <int T>
+cudaLaunchConfig_t segment_config(int grid, cudaStream_t s,
+                                  cudaLaunchAttribute (&attr)[2]) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = Burn<T>::kSmem;  // 24 KB at most: no opt-in
+  cfg.stream = s;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeCooperative;
+  attr[1].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 2;
+  return cfg;
+}
+
+// info: grid CTAs, burn CTAs, active clusters the occupancy query allows
+template <int T>
+cudaError_t segment_grid(int device, int64_t* info) {
+  int sms = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[2];
+  cudaLaunchConfig_t cfg = segment_config<T>(kCluster, nullptr, attr);
+  cfg.numAttrs = 1;  // the query takes the cluster dimension alone
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, segment_kernel<T>, &cfg);
+  if (err != cudaSuccess) return err;
+  int grid_clusters = (sms + kCluster - 1) / kCluster;
+  if (clusters < grid_clusters) grid_clusters = clusters;
+  const int grid = kCluster * grid_clusters;
+  if (grid < Burn<T>::kCtas) return cudaErrorCooperativeLaunchTooLarge;
+  info[0] = grid;
+  info[1] = Burn<T>::kCtas;
+  info[2] = clusters;
+  return cudaSuccess;
+}
+
+// the occupancy query's answer per (tile, device): a launch asks once
+constexpr int kMaxDevices = 64;
+std::atomic<int64_t> g_grid[3][kMaxDevices][3];
+
+cudaError_t grid_for(int64_t tile, int device, int64_t* info) {
+  const int t = tile == 64 ? 0 : tile == 128 ? 1 : tile == 256 ? 2 : -1;
+  if (t < 0 || device < 0) return cudaErrorInvalidValue;
+  if (device < kMaxDevices && g_grid[t][device][0].load() > 0) {
+    for (int i = 0; i < 3; ++i) info[i] = g_grid[t][device][i].load();
+    return cudaSuccess;
+  }
+  const cudaError_t err = t == 0   ? segment_grid<64>(device, info)
+                          : t == 1 ? segment_grid<128>(device, info)
+                                   : segment_grid<256>(device, info);
+  if (err == cudaSuccess && device < kMaxDevices) {
+    for (int i = 2; i >= 0; --i) g_grid[t][device][i].store(info[i]);
+  }
+  return err;
+}
+
+template <int T>
+cudaError_t launch(const int* table, int n_rows, const float* x, float* out,
+                   float4* ring, int64_t nvec, int64_t slots, int64_t start,
+                   int64_t total_ci, unsigned long long* counts, int grid,
+                   cudaStream_t s) {
+  cudaLaunchAttribute attr[2];
+  const cudaLaunchConfig_t cfg = segment_config<T>(grid, s, attr);
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, segment_kernel<T>, table, n_rows, x, out,
+                         ring, nvec, slots, start, total_ci, counts);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+}  // namespace
+
+// info (int64[3]): the grid (CTAs) a segment at `tile` launches, the CTAs
+// that burn, and the active clusters cudaOccupancyMaxActiveClusters allows.
+extern "C" int synapse_segment_grid(int64_t tile, int64_t device,
+                                    void* info) {
+  cudaError_t err = cudaSetDevice(static_cast<int>(device));
+  if (err != cudaSuccess) return err;
+  return grid_for(tile, static_cast<int>(device),
+                  static_cast<int64_t*>(info));
+}
+
+// table: n_rows x 3 int32 on `device` (rows >= 0, row[2] == 0); x and out:
+// tile x tile float32 (tile 64, 128 or 256), or null when no row burns
+// (total_ci == 0); ring: `slots` float32 blocks of n elements (n % 4 == 0),
+// or null when no row streams; counts: 2 zeroed int64 on `device`.  All
+// 16-byte aligned.  One cooperative launch on `stream`; returns its error
+// (the driver's refusal of the cooperative launch included), or
+// cudaSuccess.
+extern "C" int synapse_segment(const void* table, int64_t n_rows,
+                               const void* x, void* out, void* ring,
+                               int64_t n, int64_t slots, int64_t start,
+                               int64_t tile, int64_t total_ci, void* counts,
+                               int64_t device, void* stream) {
+  if (n_rows < 1 || n_rows > (int64_t(1) << 30) || total_ci < 0 ||
+      start < 0 || (ring != nullptr && (n <= 0 || n % 4 || slots < 1)) ||
+      (total_ci > 0 && (x == nullptr || out == nullptr))) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSetDevice(static_cast<int>(device));
+  if (err != cudaSuccess) return err;
+  int64_t info[3];
+  err = grid_for(tile, static_cast<int>(device), info);
+  if (err != cudaSuccess) return err;
+  const int grid = static_cast<int>(info[0]);
+  const int* t = static_cast<const int*>(table);
+  const float* xf = static_cast<const float*>(x);
+  float* of = static_cast<float*>(out);
+  float4* rf = static_cast<float4*>(ring);
+  unsigned long long* c = static_cast<unsigned long long*>(counts);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int rows = static_cast<int>(n_rows);
+  switch (tile) {
+    case 64:
+      return launch<64>(t, rows, xf, of, rf, n / 4, slots, start, total_ci,
+                        c, grid, s);
+    case 128:
+      return launch<128>(t, rows, xf, of, rf, n / 4, slots, start, total_ci,
+                         c, grid, s);
+    default:
+      return launch<256>(t, rows, xf, of, rf, n / 4, slots, start, total_ci,
+                         c, grid, s);
+  }
+}

@@ -25,8 +25,10 @@ Thread, process or remote executor:
     sharing one emulator and a fleet-wide ``PlanCache``.  No spawn cost;
     on the ``"cuda"`` backend the kernels of all threads share the
     current CUDA stream.  No chaos, no liveness, no DAG edges.
-  * ``FleetConfig.process()``: one worker process a slot, on the
-    ``"torch"`` backend (the fused path ships compiled tables).  Spawn,
+  * ``FleetConfig.process()``: one worker process a slot, on the fused
+    path, which ships compiled tables: the ``"torch"`` backend, or
+    ``"cuda"`` at compute tiles 64, 128 and 256 (one segment kernel launch
+    a segment, its device counters checked in the worker).  Spawn,
     never fork: a forked child would inherit the parent's CUDA context.
     Workers on one card hold one CUDA context each and time-slice it.
     Worker deaths are reaped and their bundles requeued; a seeded

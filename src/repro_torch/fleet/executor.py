@@ -404,35 +404,53 @@ class FleetBase:
             if time.monotonic() > deadline:
                 raise TimeoutError("fleet workers did not become ready "
                                    f"within {timeout}s")
-            self._tick(deque())
-            evs = self._wait(0.5, ready_only=True)
-            if not evs and not self._peers:
-                time.sleep(0.05)      # backoff respawn still pending
-            for obj in evs:
-                peer = self._peer_for(obj)
-                if peer is None:
-                    self._handle_extra(obj)
-                    continue
-                try:
-                    msg = peer.recv()
-                except PeerGone:
-                    self._reap(peer, deque())
-                    continue
-                peer.last_seen = time.monotonic()
-                if msg[0] == "ready":
-                    peer.ready = True
-                    self._note_ready()
-                    infos.append(msg[1])
-                elif msg[0] == "err":
-                    # ("err", epoch, idx, traceback[, frame]): the
-                    # traceback, not the trailing frame the JAX package
-                    # prints here
-                    raise RuntimeError(
-                        f"fleet worker failed to initialize:\n{msg[3]}")
-                # "ping": watermark refreshed above, nothing else to do
+            infos += self._serve_warming(0.5)
         if not self._peers:
             raise RuntimeError("no fleet worker survived initialization")
         return infos
+
+    def _serve_warming(self, wait_s: float) -> List[Dict]:
+        """One pass over the peers still warming: service due respawns,
+        wait up to ``wait_s`` for their messages, mark the ready (closing
+        an open fault's MTTR window); returns their ready infos."""
+        infos: List[Dict] = []
+        self._tick(deque())
+        evs = self._wait(wait_s, ready_only=True)
+        if not evs and not self._warming():
+            time.sleep(0.05)      # backoff respawn still pending
+        for obj in evs:
+            peer = self._peer_for(obj)
+            if peer is None:
+                self._handle_extra(obj)
+                continue
+            try:
+                msg = peer.recv()
+            except PeerGone:
+                self._reap(peer, deque())
+                continue
+            peer.last_seen = time.monotonic()
+            if msg[0] == "ready":
+                peer.ready = True
+                self._note_ready()
+                infos.append(msg[1])
+            elif msg[0] == "err":
+                # ("err", epoch, idx, traceback[, frame]): the traceback,
+                # not the trailing frame the JAX package prints here
+                raise RuntimeError(
+                    f"fleet worker failed to initialize:\n{msg[3]}")
+            # "ping": watermark refreshed above, nothing else to do
+        return infos
+
+    def _await_refills(self, until: float) -> None:
+        """After a stream drained: wait, until ``until`` (monotonic), for
+        refills still warming while faults are open, so each fault's MTTR
+        window closes and reaches ``fault_events``.  (The JAX package
+        returns at once and loses a window whose respawn readies after
+        the stream ends.)"""
+        while self._fault_opened and time.monotonic() < until and (
+                self._warming() or self._pending_refill()):
+            self._serve_warming(min(0.5, max(until - time.monotonic(),
+                                             0.0)))
 
     # -- execution ----------------------------------------------------------
 
@@ -977,6 +995,12 @@ class FleetBase:
                                 f"fleet worker ({peer.describe()}) failed "
                                 f"on bundle {idx} ({held[idx].command!r}):"
                                 f"\n{tb}")
+            # -- natural drain: a respawn still warming closes its fault's
+            # MTTR window first, bounded by the liveness timeout (or the
+            # run's deadline when there is none)
+            self._await_refills(deadline if liveness_timeout is None else
+                                min(deadline,
+                                    time.monotonic() + liveness_timeout))
             # -- natural drain: an elastic pool parks back at its floor ---
             if self._autoscale:
                 idle = [p for p in self._peers if not p.tasks]

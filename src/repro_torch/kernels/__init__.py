@@ -3,6 +3,7 @@
 Each kernel is a subpackage: ``kernel.py`` (the wrapper: checks its inputs,
 launches the CUDA kernel for a CUDA tensor and counts the launch, or runs
 the plain version for a CPU tensor), ``ops.py`` (the entry point the atoms
-call) and ``ref.py`` (the plain PyTorch version).  The CUDA sources live in
-``repro_torch/csrc`` and are built at first use by ``build``.
+and the segment runner call) and ``ref.py`` (the plain PyTorch version).
+The CUDA sources live in ``repro_torch/csrc`` (device code that two
+kernels share in ``*.cuh``) and are built at first use by ``build``.
 """

@@ -47,6 +47,16 @@ SIGNATURES = {
     # x, out, scratch, n, dtype code, passes, device, stream
     "synapse_stream_pass": (ctypes.c_int,
                             [_P, _P, _P, _I, _I, _I, _I, _P]),
+    # ring, n, slots, start, passes, device, stream
+    "synapse_stream_ring": (ctypes.c_int, [_P, _I, _I, _I, _I, _I, _P]),
+    # device -> the L2 cache's bytes, or minus a CUDA error code
+    "synapse_l2_cache_bytes": (ctypes.c_int64, [_I]),
+    # table, n_rows, x, out, ring, n, slots, start, tile, total compute
+    # iterations, counts, device, stream
+    "synapse_segment": (ctypes.c_int, [_P, _I, _P, _P, _P, _I, _I, _I, _I,
+                                       _I, _P, _I, _P]),
+    # tile, device, info (int64[3]: grid, burn CTAs, active clusters)
+    "synapse_segment_grid": (ctypes.c_int, [_I, _I, _P]),
     # q, k, v, out, BH, BKV, Sq, Sk, hd, dtype code, causal, window (-1 for
     # none), softcap (0 for none), scale, device, stream
     "synapse_flash_attention": (ctypes.c_int, [_P, _P, _P, _P, _I, _I, _I,

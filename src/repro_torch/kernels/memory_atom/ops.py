@@ -1,9 +1,9 @@
-"""Entry point used by ``repro_torch.core.atoms.MemoryAtom`` (backend
-``"cuda"``).
+"""The JAX package's ``stream`` entry on the card: chained passes.
 
 ``block``, ``block_bytes`` and ``iters`` are plain ints.  (The JAX
 package's ``stream`` jits ``block_bytes`` as a traced argument and so cannot
-run with it set.)
+run with it set.)  The memory atom does not chain: it streams a ring of
+blocks larger than L2 (``kernel.stream_ring``).
 """
 from __future__ import annotations
 

@@ -1,0 +1,15 @@
+"""Entry point used by ``repro_torch.core.schedule.SegmentRunner`` (backend
+``"cuda"``)."""
+from __future__ import annotations
+
+import numpy as np
+
+from repro_torch.kernels.segment import kernel
+
+
+def segment(table, *, x=None, ring=None) -> kernel.SegmentRun:
+    """One launch for a segment's ``table`` (rows padded or not: rows with
+    no work are skipped on the device); ``x`` is the burn's operand and
+    ``ring`` the memory atom's ``Ring``, each needed only when some row
+    uses it."""
+    return kernel.run_segment(np.asarray(table, dtype=np.int32), x, ring)

@@ -20,6 +20,7 @@ from repro_torch.kernels.compute_atom import kernel as ck, ref as cref
 from repro_torch.kernels.flash_attention import kernel as fk, ref as fref
 from repro_torch.kernels.memory_atom import kernel as mk, ops as mops
 from repro_torch.kernels.memory_atom import ref as mref
+from repro_torch.kernels.segment import kernel as sk, ref as sref
 from repro_torch.models.model_zoo import build_model
 from repro_torch.scenarios import generate
 from repro_torch.serve.engine import Engine, Request
@@ -68,12 +69,135 @@ def test_kernel_backend_counts_planned_launches(dev):
             flops=5 * 2.0 * tile ** 3, hbm_bytes=3 * 2.0 * block))])
     em = Emulator(calib=HostCalibration(1e9, 1e9, 1e8, 1e8), backend="cuda",
                   compute_tile=tile, mem_block=block)
-    ck.launches = ck.iterations = mk.launches = 0
-    rep = em.emulate(prof)
-    # 5 iterations burned in one launch (one compute leg); 3 stream passes
+    ck.launches = ck.iterations = mk.ring_launches = mk.ring_passes = 0
+    rep = em.emulate(prof, fused=False)
+    # 5 iterations burned in one launch (one compute leg); 3 ring passes in
+    # one launch (one memory leg)
     assert (ck.iterations, ck.launches) == (5, 1)
-    assert mk.launches == 3
+    assert (mk.ring_launches, mk.ring_passes) == (1, 3)
     assert rep.n_dispatches == 2 and rep.consumed == prof.totals
+    # fused: one segment launch burns and streams them all
+    sk.launches = sk.iterations = sk.passes = 0
+    rep = em.emulate(prof)
+    assert (rep.mode, rep.n_dispatches) == ("fused", 1)
+    assert (sk.launches, sk.iterations, sk.passes) == (1, 5, 3)
+    assert rep.consumed == prof.totals
+
+
+# segment tables: zero rows (and the runner's pow2 padding), compute-only
+# rows, memory-only rows, both in one row
+SEGMENT_TABLES = [
+    [[3, 2, 0], [0, 1, 0], [5, 0, 0], [0, 0, 0]],
+    [[0, 0, 0], [7, 0, 0]],
+    [[0, 4, 0]],
+    [[2, 3, 0]] * 5,
+    [[17, 0, 0], [0, 0, 0], [0, 9, 0], [1, 1, 0]],
+]
+
+
+@pytest.mark.parametrize("tile", sk.TILES)
+@pytest.mark.parametrize("table", SEGMENT_TABLES)
+def test_segment_matches_plain(dev, tile, table):
+    """The burn carry to 1e-5 (exact float32 both sides, summed in other
+    orders), the ring bit for bit, and the device counters exact."""
+    rng = np.random.default_rng(4)
+    t = np.asarray(table, np.int32)
+    ci, mi = int(t[:, 0].sum()), int(t[:, 1].sum())
+    x = torch.from_numpy((rng.standard_normal((tile, tile)) * 0.1).astype(
+        np.float32)).to(dev)
+    ring = mk.Ring(1 << 18, dev, slots=3)
+    ring.data.copy_(torch.from_numpy(rng.standard_normal(
+        (3, 1 << 16)).astype(np.float32)))
+    ring.passes = 5
+    want_ring = ring.data.clone()
+    want_y = sref.run_segment(t, x, want_ring, start=5)
+    before = (sk.launches, sk.iterations, sk.passes)
+    run = sk.run_segment(t, x if ci else None, ring if mi else None)
+    torch.cuda.synchronize()
+    run.settle()
+    assert (sk.launches - before[0], sk.iterations - before[1],
+            sk.passes - before[2]) == (1, ci, mi)
+    if ci:
+        torch.testing.assert_close(run.y, want_y, atol=1e-5, rtol=1e-5)
+    assert torch.equal(ring.data, want_ring)
+    assert ring.passes == 5 + mi
+
+
+def test_segment_counters_exact_under_threads(dev):
+    """2 threads launch 40 segments each on one runner (one ring): the
+    device counts every iteration and pass, the launches serialize on the
+    shared stream, and nothing deadlocks."""
+    from repro_torch.core.schedule import FusedSegment, SegmentRunner
+    runner = SegmentRunner(tile=256, block_bytes=1 << 20, device=dev,
+                           backend="cuda")
+    seg = FusedSegment(table=[[3, 2, 0], [0, 1, 0], [4, 0, 0]])
+    before = (sk.launches, sk.iterations, sk.passes)
+    start, errors = threading.Barrier(2), []
+
+    def run():
+        try:
+            start.wait()
+            for _ in range(40):
+                assert runner.run(seg)
+        except BaseException as e:        # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run) for _ in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+    assert not errors and not any(th.is_alive() for th in threads)
+    assert (sk.launches - before[0], sk.iterations - before[1],
+            sk.passes - before[2]) == (80, 80 * 7, 80 * 3)
+    assert runner._ring().passes == 80 * 3
+
+
+def test_segment_and_ring_wrappers_raise_and_never_fall_back(dev):
+    """CUDA tensors the kernels cannot take raise; no torch ops run in
+    their place."""
+    t = np.asarray([[2, 1, 0]], np.int32)
+    before = (sk.launches, mk.ring_launches)
+    ring = mk.Ring(1 << 18, dev, slots=2)
+    with pytest.raises(ValueError, match="tile"):
+        sk.run_segment(t, torch.eye(320, device=dev), ring)
+    with pytest.raises(ValueError, match="tile"):
+        sk.run_segment(t, torch.eye(64, device=dev, dtype=torch.float64),
+                       ring)
+    with pytest.raises(ValueError, match="lie on"):
+        sk.run_segment(t, torch.eye(64), ring)
+    with pytest.raises(ValueError, match="16-byte"):
+        mk.stream_ring(mk.Ring(4 * 6, dev, slots=2), passes=1)
+    from repro_torch.core.schedule import FusedSegment, SegmentRunner
+    with pytest.raises(ValueError, match="tile"):
+        SegmentRunner(tile=320, block_bytes=1 << 18, device=dev,
+                      backend="cuda").run(FusedSegment(table=[[1, 0, 0]]))
+    assert (sk.launches, mk.ring_launches) == before
+
+
+def test_ring_pass_matches_plain(dev):
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (3, 1 << 20)).astype(np.float32)).to(dev)
+    ring = mk.Ring(1 << 22, dev, slots=3)
+    ring.data.copy_(x)
+    before = (mk.ring_launches, mk.ring_passes)
+    mk.stream_ring(ring, passes=4)
+    mk.stream_ring(ring, passes=3)
+    mref.ring_pass(x, start=0, passes=7)
+    torch.cuda.synchronize()
+    assert (mk.ring_launches - before[0], mk.ring_passes - before[1]) == \
+        (2, 7)
+    assert torch.equal(ring.data, x)
+
+
+def test_ring_outruns_the_l2(dev):
+    """The atom's ring holds at least 4 x the L2's bytes (13 blocks of 16
+    MiB for an H100's 50 MiB)."""
+    from repro_torch.core.atoms import MemoryAtom
+    atom = MemoryAtom(block_bytes=1 << 24, backend="cuda", device=dev)
+    ring = atom.ring()
+    assert ring.slots * (1 << 24) >= 4 * mk.l2_cache_bytes(dev)
+    assert (ring.slots - 1) * (1 << 24) < 4 * mk.l2_cache_bytes(dev)
 
 
 # (BH, BKV, Sq, Sk, hd, causal, window, softcap): the JAX package's SWEEP
@@ -225,3 +349,25 @@ def test_standing_fleet_session_on_the_card(dev):
     assert res.n_ok == 2 and [r.ok for r in res.records] == [True, True]
     assert [got[i].consumed for i in range(2)] == want
     assert all(got[i].mode == "fused" for i in range(2))
+
+
+def test_process_fleet_on_the_card_replays_segment_kernels(dev):
+    """A worker given the ``"cuda"`` backend replays fused through the
+    segment kernel on the card (its device counters checked in the
+    worker, which raises on a short burn): reports equal the in-process
+    ``"cuda"`` replay, which launches one segment a non-noop segment."""
+    em = Emulator(calib=HostCalibration(1e9, 1e9, 1e8, 1e8), backend="cuda",
+                  compute_tile=64, mem_block=1 << 18)
+    jobs = [generate("fanout_straggler", n_workers=4, work_flops=2e7,
+                     work_hbm=4e6), generate("retry_storm", seed=2),
+            generate("mixed_fleet", total_samples=8, seed=1)]
+    sk.launches = 0
+    want = [em.emulate(p) for p in jobs]
+    em.storage.cleanup()
+    assert sk.launches == sum(
+        1 for p in jobs for s in em.compile(p).segments
+        if s.compute_iters or s.memory_iters) > 0
+    rep = em.emulate_many(jobs, config=FleetConfig.process(max_workers=1))
+    assert [(r.consumed, r.n_samples, r.mode, r.n_dispatches)
+            for r in rep.reports] == \
+        [(r.consumed, r.n_samples, "fused", r.n_dispatches) for r in want]

@@ -358,10 +358,11 @@ def test_dag_frontier_on_fake_peers_equals_reference():
 
 @pytest.mark.parametrize("backend,ref_backend,fused", [
     ("torch", "jnp", True), ("torch", "jnp", False),
-    ("cuda", "pallas", False)])
+    ("cuda", "pallas", False), ("cuda", "jnp", True)])
 def test_thread_emulate_many_equals_reference(backend, ref_backend, fused,
                                               tmp_path):
-    compute_only = backend == "cuda"
+    # the reference's pallas memory leg cannot run (ROADMAP.md queue 3)
+    compute_only = ref_backend == "pallas"
     out = {}
     for pkg, b in (("torch", backend), ("jax", ref_backend)):
         em = _em(pkg, tmp_path, backend=b)
@@ -383,12 +384,13 @@ def test_thread_emulate_many_equals_reference(backend, ref_backend, fused,
 
 def test_thread_fleet_cuda_backend_matches_torch_backend(tmp_path):
     """The kernel backend (plain versions on the CPU) replays the full job
-    set, memory legs included, to the same totals as the fused backend."""
+    set, memory legs included, fused through the segment kernel's wrapper
+    to the same totals as the ``"torch"`` backend."""
     reps = [_em("torch", tmp_path, backend=b).emulate_many(
         _jobs("torch"), config=TF.FleetConfig.thread(max_workers=2))
         for b in ("cuda", "torch")]
     assert reps[0].totals == reps[1].totals
-    assert [r.mode for r in reps[0].reports] == ["per_sample"] * 5
+    assert [r.mode for r in reps[0].reports] == ["fused"] * 5
 
 
 def test_thread_fleet_skip_window_and_errors_like_reference(tmp_path):
@@ -441,10 +443,13 @@ def test_unported_fleet_paths_raise_not_implemented():
                                          device="cpu"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         TF.run_process_fleet(em, jobs, mesh_spec=mesh)
-    # the kernel backend ships no compiled tables: processes refuse it
+    # the kernel backend replays per sample at a tile the segment kernel
+    # does not take, and ships no compiled tables there: processes refuse it
+    off_tile = T.Emulator(calib=T.HostCalibration(1e9, 1e9, 1e8, 1e8),
+                          backend="cuda", compute_tile=32, mem_block=BLOCK,
+                          device="cpu")
     with pytest.raises(ValueError, match="fused"):
-        _em("torch", backend="cuda").emulate_many(
-            jobs, config=TF.FleetConfig.process())
+        off_tile.emulate_many(jobs, config=TF.FleetConfig.process())
 
 
 def test_fleet_report_json_crosses_both_ways():

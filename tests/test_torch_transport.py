@@ -231,10 +231,13 @@ def test_remote_guard_rails_equal_reference():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         TF.run_remote_fleet(_em("torch"), [], hosts=["h:1"],
                             mesh_spec=mesh)
-    # the kernel backend ships no compiled tables: remote refuses it too
-    with pytest.raises(ValueError, match="fused torch replay"):
-        _em("torch", backend="cuda").emulate_many(
-            [], config=TF.FleetConfig.remote(["h:1"]))
+    # the kernel backend at a tile the segment kernel does not take ships
+    # no compiled tables: remote refuses it too
+    off_tile = T.Emulator(calib=T.HostCalibration(1e9, 1e9, 1e8, 1e8),
+                          backend="cuda", compute_tile=32, mem_block=1 << 18,
+                          device="cpu")
+    with pytest.raises(ValueError, match="fused replay path"):
+        off_tile.emulate_many([], config=TF.FleetConfig.remote(["h:1"]))
 
 
 # ---------------------------------------------------------------------------
