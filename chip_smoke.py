@@ -30,6 +30,24 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
              and kernel launches are checked against the schedule, the
              device's busy share is read from the launches and the device
              time of each, and ``predict`` is printed beside
+  collective the collective atom on a mesh whose shards all live on the
+             card (printed as ``shared``): ``csrc/collective.cu`` (the
+             per-sample collective) and the segment kernel's wire leg
+             against their plain versions for each kind on a 2-shard
+             mesh, a 1-shard all-reduce folded to nothing, the wire leg's
+             device time a step beside the L2 bound, a library call and
+             NVLink's time for the same wire bytes; then a
+             Qwen2-7B ``training_scan`` with a 2-way data-parallel step's
+             wire bytes replayed fused (one segment launch, the device's
+             counts of all three legs the table's, consumed equal to
+             planned, emulated wire bytes the quantized table's) and per
+             sample (one collective launch a wire leg, at a tenth of the
+             wire bytes, printed as ``reduced``), each beside
+             ``predict``; and a 2-worker process fleet whose workers
+             build their own mesh on the card and replay the mesh-bound
+             bundle as this process does; last, ``collective.cu`` at the
+             operand the per-sample run gave it (6.08 GB), against its
+             plain version, timed beside the HBM bound and a library call
   fleet      fleet emulation through ``run_fleet`` / ``emulate_many``:
              Qwen2-7B serving and training profiles (published widths,
              cut in tokens, steps and checkpoint bytes) with the other
@@ -169,6 +187,20 @@ FLEET_CUTS = {
     "training_scan": {"tokens_per_step": 16, "n_steps": 2,
                       "ckpt_bytes": float(1 << 30)},
 }
+# Qwen2-7B trained 2-way data parallel: the ring all-reduce of its bf16
+# gradients moves 2 x (2 - 1) / 2 x 2 bytes x 7.6e9 parameters a step
+QWEN2_7B_TRAIN_WIRE = 2 * (2 - 1) / 2 * 2 * QWEN2_7B_PARAMS
+# the collective phase's cuts: tokens and steps as the fleet phase's, no
+# checkpoint (a storage leg would replay the wire leg per sample at full
+# size), and on the per-sample path a tenth of the wire bytes: its operand
+# is n x the shard's bytes on one card (30 GB a step at full size, and as
+# much again for the all-reduce's output)
+COLLECTIVE_CUTS = {"tokens_per_step": 16, "n_steps": 2, "ckpt_every": 0,
+                   "per_sample_ici_per_step": QWEN2_7B_TRAIN_WIRE / 10}
+# NVLink, each way (NVIDIA's H100 datasheet): what the wire bytes would
+# take between two cards, printed beside the one card's emulated time
+NVLINK_BPS = 450e9
+COLL_TOL = 1e-6            # float32 collectives: rtol and atol
 # the serving shape: Qwen2-7B's prefill of 4 prompts of 2048 tokens
 SERVE_B, SERVE_S, SERVE_HQ, SERVE_HK, SERVE_HD = 4, 2048, 28, 4, 128
 SERVE_PROMPTS = (2048, 1536, 1024, 512)
@@ -798,22 +830,28 @@ def phase_flash(torch, np, rng):
 
 def counters() -> dict:
     """Every kernel counter of the emulation path."""
+    from repro_torch.kernels.collective import kernel as wk
     from repro_torch.kernels.compute_atom import kernel as ck
     from repro_torch.kernels.memory_atom import kernel as mk
     from repro_torch.kernels.segment import kernel as sk
     return {"burn_tile": ck.launches, "burn_iters": ck.iterations,
             "stream_ring": mk.ring_launches, "ring_passes": mk.ring_passes,
             "stream_chain": mk.launches, "segment": sk.launches,
-            "segment_iters": sk.iterations, "segment_passes": sk.passes}
+            "segment_iters": sk.iterations, "segment_passes": sk.passes,
+            "segment_wire": sk.wire_launches, "segment_steps": sk.steps,
+            "collective": wk.launches}
 
 
 def zero_counters() -> None:
+    from repro_torch.kernels.collective import kernel as wk
     from repro_torch.kernels.compute_atom import kernel as ck
     from repro_torch.kernels.memory_atom import kernel as mk
     from repro_torch.kernels.segment import kernel as sk
     ck.launches = ck.iterations = 0
     mk.launches = mk.ring_launches = mk.ring_passes = 0
     sk.launches = sk.iterations = sk.passes = 0
+    sk.wire_launches = sk.steps = 0
+    wk.launches = 0
 
 
 def planned_counts(em, profile, fused: bool = True) -> dict:
@@ -821,7 +859,9 @@ def planned_counts(em, profile, fused: bool = True) -> dict:
     leave on the ``"cuda"`` backend: one segment launch a non-noop segment
     (its iterations and passes device-counted), and on the per-sample path
     (barrier steps, or every run when not fused) one burn launch a compute
-    leg and one ring launch a memory leg."""
+    leg, one ring launch a memory leg and, on an emulator with a mesh, one
+    collective launch a wire leg; a segment with wire rows counts its
+    collective steps on the device too."""
     from repro_torch.core.emulator import _collapse
     from repro_torch.core.schedule import FusedSegment
     want = dict.fromkeys(counters(), 0)
@@ -835,14 +875,19 @@ def planned_counts(em, profile, fused: bool = True) -> dict:
         want["burn_iters"] += c * reps
         want["stream_ring"] += (m > 0) * reps
         want["ring_passes"] += m * reps
+        if em.collective is not None and r.ici_total > 0:
+            want["collective"] += (em.collective.quant().factor > 0) * reps
 
     if fused and em._fusable:
         for step in em.compile(profile).steps:
             if isinstance(step, FusedSegment):
-                if step.compute_iters or step.memory_iters:
+                if step.compute_iters or step.memory_iters \
+                        or step.collective_iters:
                     want["segment"] += 1
                     want["segment_iters"] += step.compute_iters
                     want["segment_passes"] += step.memory_iters
+                    want["segment_wire"] += step.collective_iters > 0
+                    want["segment_steps"] += step.collective_iters
             else:               # a storage leg: replayed sample by sample
                 per_sample(step.resources, step.count)
         return want
@@ -1019,6 +1064,323 @@ def phase_main_path(torch, rows):
     if not err <= 1e-5:
         fail(f"fused segment on the card differs from the host by {err}")
     return calib, per_iter_ms
+
+
+def collective_profile(ici_per_step: float):
+    """``training_scan`` at Qwen2-7B's per-step amounts with the wire bytes
+    of a 2-way data-parallel step (COLLECTIVE_CUTS)."""
+    from repro_torch.scenarios import generate
+    tokens = COLLECTIVE_CUTS["tokens_per_step"]
+    return generate("training_scan", n_steps=COLLECTIVE_CUTS["n_steps"],
+                    flops_per_step=6 * QWEN2_7B_PARAMS * tokens,
+                    hbm_per_step=(QWEN2_7B_PARAMS
+                                  * QWEN2_7B_TRAIN_BYTES_PER_PARAM),
+                    ici_per_step=ici_per_step,
+                    ckpt_every=COLLECTIVE_CUTS["ckpt_every"])
+
+
+def report_dump(rep) -> dict:
+    """A report's deterministic fields (everything but its times)."""
+    d = rep.to_dict()
+    d.pop("ttc_s")
+    d.pop("per_sample_s")
+    return d
+
+
+def phase_collective(torch, np, calib, build_info):
+    """The collective atom on the card, its mesh's shards all on cuda:0:
+    ``csrc/collective.cu`` (the per-sample collective) and the segment
+    kernel's wire leg against their plain versions for each kind on a
+    2-shard mesh, the 1-shard fold; the wire leg's device time a step;
+    then the path: a Qwen2-7B-sized ``training_scan`` with a 2-way
+    data-parallel step's wire bytes replayed fused (one segment launch,
+    the device's counts of all three legs the table's) and per sample (one
+    collective launch a wire leg, at a tenth of the wire bytes), and a
+    2-worker process fleet whose workers build their own mesh and replay
+    the mesh-bound bundle like this process; last, ``collective.cu`` at
+    the operand the per-sample run gave it, against its plain version and
+    timed.  Returns the kernels line's ``collective`` and ``segment_wire``
+    rows."""
+    from repro_torch.core import H100_SXM, Emulator, predict
+    from repro_torch.core.atoms import (COLL_BLOCK_ELEMS, CollectiveAtom,
+                                        CollectiveQuant)
+    from repro_torch.fleet import (FleetConfig, MeshSpec, ProcessFleet,
+                                   run_process_fleet)
+    from repro_torch.kernels.collective import kernel as wk, ref as wref
+    from repro_torch.kernels.memory_atom import kernel as mk
+    from repro_torch.kernels.segment import kernel as sk, ref as sref
+    from repro_torch.launch.mesh import describe, make_mesh
+    started = time.perf_counter()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(11)
+    card = torch.cuda.get_device_name(0)
+    mesh = make_mesh((2,), ("data",), dev)
+    emit("collective", step="mesh", mesh=describe(mesh),
+         shared=mesh.shared, device=str(mesh.device),
+         devices=[str(d) for d in mesh.devices.flat])
+
+    # 1. each kind against its plain version on the 2-shard mesh: the
+    # per-sample collective, and the segment kernel's wire leg on the
+    # fused carry after a burn and a ring leg
+    coll_err = wire_err = 0.0
+    table = np.asarray([[2, 1, 3], [0, 0, 0], [0, 0, 5], [1, 2, 0]],
+                       np.int32)
+    for kind in wref.KINDS:
+        x = torch.from_numpy(rng.standard_normal((2, 4096)).astype(
+            np.float32)).to(dev)
+        got = wk.collective(x, dim=0, kind=kind)
+        want = wref.collective(x, dim=0, kind=kind)
+        w = torch.from_numpy(rng.standard_normal(
+            (2, COLL_BLOCK_ELEMS)).astype(np.float32)).to(dev)
+        xs = torch.from_numpy((rng.standard_normal((256, 256)) * 0.1)
+                              .astype(np.float32)).to(dev)
+        ring = mk.Ring(1 << 18, dev, slots=3)
+        want_w, want_ring = w.clone(), ring.data.clone()
+        want_y = sref.run_segment(table, xs, want_ring, w=want_w, kind=kind)
+        run = sk.run_segment(table, xs, ring, w, kind)
+        torch.cuda.synchronize()
+        run.settle()
+        errs = {"collective": (got - want).abs().max().item(),
+                "segment_wire": (run.w - want_w).abs().max().item(),
+                "segment_burn": (run.y - want_y).abs().max().item()}
+        ok = (got.shape == want.shape
+              and torch.allclose(got, want, rtol=COLL_TOL, atol=COLL_TOL)
+              and torch.allclose(run.w, want_w, rtol=COLL_TOL, atol=COLL_TOL)
+              and torch.allclose(run.y, want_y, rtol=BURN_TOL, atol=BURN_TOL)
+              and torch.equal(ring.data, want_ring))
+        emit("collective", step="against_plain", kind=kind,
+             max_abs_err=errs, tolerance=COLL_TOL, ok=ok)
+        if not ok:
+            fail(f"collective {kind}: max abs err {errs} beyond "
+                 f"{COLL_TOL}")
+        coll_err = max(coll_err, errs["collective"])
+        wire_err = max(wire_err, errs["segment_wire"])
+
+    # a 1-shard axis all-reduces nothing: no steps, no plan, no launch
+    one = make_mesh((1,), ("data",), dev)
+    before = wk.launches
+    plan = CollectiveAtom(one, backend="cuda").plan(QWEN2_7B_TRAIN_WIRE)
+    em1 = Emulator(calib=calib, backend="cuda", mesh=one)
+    folded = em1.compile(collective_profile(QWEN2_7B_TRAIN_WIRE))
+    steps1 = sum(int(t[:, 2].sum()) for t in
+                 (seg.table for seg in folded.segments))
+    emit("collective", step="one_shard", plan_amount=plan.amount,
+         iters=CollectiveQuant(n=1).iters_for(QWEN2_7B_TRAIN_WIRE),
+         table_steps=steps1, mesh_bound=folded.mesh_bound)
+    if plan.amount or plan.launch() is not None or wk.launches != before \
+            or steps1 or folded.mesh_bound:
+        fail("collective: a 1-shard all-reduce did not fold to nothing")
+    del em1
+
+    # 2. device times a step on the fused carry (2 x 128 KiB, in L2): the
+    # segment's wire leg alone, the plain version and the library call;
+    # the bound reads and writes the carry once a step at L2's read rate
+    # (csrc/l2_probe.cu, this run)
+    w = torch.ones((2, COLL_BLOCK_ELEMS), dtype=torch.float32, device=dev)
+    step_bytes = 2 * w.numel() * 4
+    l2 = l2_read_rates(torch)
+    l2_bps = max(l2.values())
+    plain_ms = graph_ms(lambda: chain(lambda y: wref.loop_step(
+        y, dim=0, kind="all-reduce"), w, 100), 100)
+    library_ms = graph_ms(lambda: repeat(lambda: w.copy_(
+        w.mean(0, keepdim=True).expand_as(w)), 100), 100)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    leg = np.asarray([[0, 0, 20000]], np.int32)
+    times = []
+    for _ in range(3):
+        start.record()
+        run = sk.run_segment(leg, None, None, w, "all-reduce")
+        end.record()
+        end.synchronize()
+        run.settle()
+        times.append(start.elapsed_time(end) / int(leg[0, 2]))
+    wire_ms = min(times)
+    bound_ms = step_bytes / l2_bps * 1e3
+    emit("collective", step="step_times", l2_read_bytes_per_s=l2,
+         plain_ms=plain_ms, library_ms=library_ms,
+         segment_wire_ms=wire_ms, segment_wire_ms_each=times,
+         bound_ms=bound_ms, bytes_per_step=step_bytes)
+
+    # 3. the path: fused at full width and amounts, then per sample at the
+    # cut's wire bytes (and fused at the cut, like with like)
+    em = Emulator(calib=calib, backend="cuda", mesh=mesh)
+    quant = em.collective.quant()
+    full = collective_profile(QWEN2_7B_TRAIN_WIRE)
+    cut = collective_profile(COLLECTIVE_CUTS["per_sample_ici_per_step"])
+    emit("collective", step="profile", reduced=COLLECTIVE_CUTS,
+         ici_per_step=QWEN2_7B_TRAIN_WIRE, n_samples=len(full.samples),
+         flops=full.totals.flops, hbm_bytes=full.totals.hbm_bytes,
+         ici_bytes=full.totals.ici_total, quant=quant.to_dict())
+    results = {}
+    # the shapes the path gives collective.cu, recorded as it launches
+    operands, collective_kernel = [], wk.collective
+
+    def seen_collective(x, **kw):
+        operands.append((tuple(x.shape), kw))
+        return collective_kernel(x, **kw)
+
+    for name, prof, fused in (("fused", full, True),
+                              ("per_sample_cut", cut, False),
+                              ("fused_cut", cut, True)):
+        sched = em.compile(prof)
+        tables = [seg.table for seg in sched.segments]
+        steps = sum(int(t[:, 2].sum()) for t in tables)
+        want = planned_counts(em, prof, fused)
+        zero_counters()
+        wk.collective = seen_collective
+        t0 = time.perf_counter()
+        try:
+            rep = em.emulate(prof, fused=fused)
+            torch.cuda.synchronize()
+        finally:
+            wk.collective = collective_kernel
+        wall = time.perf_counter() - t0
+        got = counters()
+        pred = predict(prof, H100_SXM)
+        emulated_want = (quant.emulated_bytes(steps) if fused else
+                         rep.emulated_ici_bytes)
+        emit("collective", step="emulate", run=name, fused=fused,
+             mode=rep.mode, ttc_s=rep.ttc_s, wall_s=wall,
+             n_dispatches=rep.n_dispatches,
+             n_collective_dispatches=rep.n_collective_dispatches,
+             emulated_ici_bytes=rep.emulated_ici_bytes,
+             ici_bytes=prof.totals.ici_total, table_steps=steps,
+             counters=got, predicted_ttc_s=pred.ttc_max,
+             predicted_collective_s=pred.terms.collective_s,
+             nvlink_s=prof.totals.ici_total / NVLINK_BPS,
+             emulated_wire_l2_s=steps * wire_ms / 1e3 if fused else None)
+        if rep.consumed != prof.totals:
+            fail(f"collective {name}: consumed {rep.consumed}, want "
+                 f"{prof.totals}")
+        if got != want:
+            fail(f"collective {name}: kernel counters {got}, want {want}")
+        if fused and (not got["segment_wire"] or got["segment_steps"] != steps
+                      or rep.emulated_ici_bytes != emulated_want
+                      or rep.n_dispatches != want["segment"]):
+            fail(f"collective {name}: {got['segment_steps']} steps, "
+                 f"emulated {rep.emulated_ici_bytes}, want {steps} steps, "
+                 f"{emulated_want}")
+        if not fused and (not got["collective"] or abs(
+                rep.emulated_ici_bytes - prof.totals.ici_total)
+                > 0.05 * prof.totals.ici_total):
+            fail(f"collective {name}: {got['collective']} launches, "
+                 f"emulated {rep.emulated_ici_bytes} of "
+                 f"{prof.totals.ici_total}")
+        results[name] = (rep, got)
+
+    # 4. a 2-worker process fleet: each worker builds its own 2-shard mesh
+    # on the card and replays the mesh-bound bundle of the full profile
+    parent = Emulator(calib=calib, backend="cuda")
+    mesh_spec = MeshSpec(shape=(2,), axes=("data",))
+    in_process = em.replay(parent.compile(full, mesh_spec=mesh_spec),
+                           command=full.command, planned=full.totals)
+    spec = FleetConfig.process(max_workers=2, mesh=mesh_spec).worker_spec(
+        parent.spec(), device=str(parent.device))
+    spawned = time.monotonic()
+    with ProcessFleet(2, spec) as pool:
+        infos = pool.warmup(timeout=300.0)
+        spawn_to_ready = sorted(p.last_seen - spawned for p in pool._peers)
+        warm = run_process_fleet(parent, [full, full], fleet=pool,
+                                 mesh_spec=mesh_spec)
+    emit("collective", step="process_fleet", workers=warm.max_workers,
+         ready=infos, spawn_to_ready_s=spawn_to_ready, wall_s=warm.wall_s,
+         ttc_s=[r.ttc_s for r in warm.reports],
+         in_process_ttc_s=in_process.ttc_s)
+    want_mesh = {"shape": [2], "axes": ["data"], "shared": True}
+    if [(i["device"], i["mesh"]) for i in infos] != [(card, want_mesh)] * 2:
+        fail(f"collective process fleet: workers {infos}")
+    for r in warm.reports:
+        if report_dump(r) != report_dump(in_process):
+            fail(f"collective process fleet: report {report_dump(r)}, "
+                 f"in process {report_dump(in_process)}")
+    del em, parent, in_process
+
+    # 5. collective.cu at the operand the per-sample run gave it (random
+    # values in its shape), against its plain version, and timed beside
+    # the plain version and the library call; the bound reads the operand
+    # once and writes the output once at HBM's rate
+    shapes = sorted({(shape, tuple(sorted(kw.items())))
+                     for shape, kw in operands})
+    if len(shapes) != 1:
+        fail(f"collective: the per-sample run gave collective.cu "
+             f"{shapes}, want one all-reduce operand")
+    shape, kw = shapes[0][0], dict(shapes[0][1])
+    if kw != {"dim": 0, "kind": "all-reduce"}:
+        fail(f"collective: the per-sample run launched {kw}")
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
+    big_ms = event_ms(lambda: wk.collective(x, **kw), reps=5, warmup=1)
+    big_plain_ms = event_ms(lambda: wref.collective(x, **kw), reps=5,
+                            warmup=1)
+    big_library_ms = event_ms(
+        lambda: x.sum(0, keepdim=True).expand_as(x).contiguous(), reps=5,
+        warmup=1)
+    got = wk.collective(x, **kw)
+    want = wref.collective(x, **kw)
+    big_bytes = (x.numel() + got.numel()) * 4
+    got.sub_(want).abs_()          # in place: the operand is gigabytes
+    big_err = got.max().item()
+    big_ok = bool((got <= want.abs_().mul_(COLL_TOL).add_(COLL_TOL)).all())
+    big_bound_ms = big_bytes / PEAK_HBM_BPS * 1e3
+    emit("collective", step="per_sample_operand", shape=list(shape),
+         bytes=big_bytes, max_abs_err=big_err, tolerance=COLL_TOL,
+         ok=big_ok, ms=big_ms, plain_ms=big_plain_ms,
+         library_ms=big_library_ms, bound_ms=big_bound_ms)
+    if not big_ok:
+        fail(f"collective at {list(shape)}: max abs err {big_err} beyond "
+             f"{COLL_TOL}")
+    del x, got, want
+    torch.cuda.empty_cache()
+    emit("collective", step="done", seconds=time.perf_counter() - started)
+
+    def resources(word):
+        return {k: v["ptxas"] for k, v in build_info.items() if word in k}
+
+    fused_got = results["fused"][1]
+    return {
+        "collective": {
+            "name": "collective", "route": "cuda",
+            "source": "src/repro_torch/csrc/collective.cu",
+            "replaces": "src/repro/core/atoms.py:487 (CollectiveAtom."
+                        "_coll_fn: lax.psum, all_gather and ppermute under "
+                        "shard_map; not a Pallas kernel)",
+            "launches": results["per_sample_cut"][1]["collective"],
+            "max_abs_err": max(coll_err, big_err), "ms": big_ms,
+            "plain_ms": big_plain_ms, "bound_ms": big_bound_ms,
+            "bound_by": "bytes", "bound_rate": "HBM peak",
+            "library_ms": big_library_ms,
+            "library": "x.sum(0, keepdim=True).expand_as(x).contiguous()",
+            "shape": list(shape), "ptxas": resources("collective"),
+            "unit": "one per-sample all-reduce launch on the per-sample "
+                    "run's operand",
+            "timing": "device time: CUDA events around 5 launches",
+        },
+        "segment_wire": {
+            "name": "segment_wire", "route": "cuda",
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "bound_rate": "L2 read rate of csrc/l2_probe.cu, this run",
+            "library_ms": library_ms,
+            "library": "x.copy_(x.mean(0, keepdim=True).expand_as(x))",
+            "shape": [2, COLL_BLOCK_ELEMS],
+            "ptxas": resources("segment_kernel"),
+            "nvlink_ms_a_step": quant.wire_bytes_per_iter / NVLINK_BPS * 1e3,
+            "source": "src/repro_torch/csrc/segment.cu",
+            "device_code": "src/repro_torch/csrc/coll.cuh",
+            "replaces": "src/repro/core/schedule.py:357 (the collective "
+                        "block of SegmentRunner._fn's scan; not a Pallas "
+                        "kernel)",
+            "launches": fused_got["segment_wire"],
+            "steps": fused_got["segment_steps"], "max_abs_err": wire_err,
+            "ms": wire_ms,
+            "unit": "one all-reduce step of the segment kernel's wire leg "
+                    "on its 2 x 128 KiB carry, in a 20000-step launch",
+            "timing": "device time: CUDA events around one launch, the "
+                      "best of 3; plain and library: CUDA graph of 100 "
+                      "steps",
+        },
+    }
 
 
 def fleet_jobs():
@@ -1723,6 +2085,7 @@ def main() -> None:
     build_info = phase_build()
     rows = phase_kernels(torch, np, build_info)
     calib, per_iter_ms = phase_main_path(torch, rows)
+    rows.update(phase_collective(torch, np, calib, build_info))
     fleet_profiles, fleet_refs = phase_fleet(torch, calib, per_iter_ms)
     phase_service(torch, calib, fleet_profiles, fleet_refs)
     phase_serve(torch, np, rows)

@@ -13,7 +13,7 @@ dtypes.
 
 The JAX package's fields for training and distribution (remat, loss
 chunking, ZeRO-1, sharding, pipelining) come with the slices that read them
-(ROADMAP.md queue 2, items 7b and 7h).
+(ROADMAP.md queue 1, items 7b and 7h).
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ ATTN_IMPLS = ("auto", "full", "blocked", "cuda")
 
 BLOCKED_TODO = ("attn_impl='blocked' (attend_blocked: the XLA flash and "
                 "banded paths with custom VJPs) is not ported yet: ROADMAP.md "
-                "queue 2, item 7b (blocked attention and training)")
+                "queue 1, item 7b (blocked attention and training)")
 
 
 @dataclass(frozen=True)

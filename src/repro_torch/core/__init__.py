@@ -1,13 +1,14 @@
 """Synapse core on PyTorch: profile -> store -> emulate on a CUDA card ->
 predict TTC on hardware you don't have (roofline terms per sample).
 
-Ported so far: the datamodel, the atoms (compute, memory, storage), the
-schedule compiler, the emulator with its thread and process fleets
-(``Emulator.emulate_many``, ``repro_torch.fleet``), calibration, the
-predictor, the store and the runtime watchers.  The collective atom and
-the static profiler are not ported yet.
+Ported so far: the datamodel, the atoms (compute, memory, collective,
+storage), the schedule compiler, the emulator with its thread and process
+fleets (``Emulator.emulate_many``, ``repro_torch.fleet``), calibration,
+the predictor, the store and the runtime watchers.  The static profiler is
+not ported yet.
 """
-from repro_torch.core.atoms import (CollectiveQuant, CollectiveSpec,  # noqa
+from repro_torch.core.atoms import (CollectiveAtom,  # noqa
+                                    CollectiveQuant, CollectiveSpec,
                                     ComputeAtom, ComputeSpec, MemoryAtom,
                                     MemorySpec, Plan, PlanCache, StorageAtom,
                                     StorageSpec, collective_factor)

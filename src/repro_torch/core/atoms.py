@@ -13,13 +13,17 @@ Paper §IV-B, on a CUDA card:
                      over a ring of blocks several times the L2's size,
                      made once per atom; ``"torch"``: a scaled copy loop,
                      whose block stays in L2 on a card).
+  * CollectiveAtom — moves an exact wire-byte count over a mesh axis with
+                     all-reduce, all-gather or collective-permute (the
+                     paper's "planned" network atom).  A mesh's shards all
+                     live on one device (``repro_torch.launch.mesh``), so
+                     the bytes move through that device's memory, not over
+                     a link.  Backends: ``"torch"`` (the plain version) or
+                     ``"cuda"``, the hand-written kernel in
+                     ``repro_torch.kernels.collective``.
   * StorageAtom    — block-wise file write/read (libc read/write, unchanged
                      from the paper; block size is the tunable the paper
                      discusses in §IV-E.3).
-
-The collective atom is not ported yet: ``CollectiveSpec`` and
-``CollectiveQuant`` are here so schedules quantized for a mesh load and
-compare, but nothing executes wire bytes.
 
 Atoms expose ``plan(amount) -> Plan`` so the emulator can pre-plan, and
 ``seconds(amount, hw)`` — the model cost used by the TTC predictor.  A
@@ -41,6 +45,8 @@ import torch
 from repro_torch.core.calibrate import HostCalibration
 from repro_torch.core.hardware import HardwareSpec
 from repro_torch.device import DeviceLike, resolve, sync
+from repro_torch.kernels.collective import ops as coll_ops
+from repro_torch.kernels.collective import ref as coll_ref
 from repro_torch.kernels.compute_atom import ops as catom_ops
 from repro_torch.kernels.memory_atom.kernel import Ring, stream_ring
 
@@ -239,16 +245,14 @@ class CollectiveQuant:
                                block_elems=int(d["block_elems"]))
 
 
-#: where the collective atom stands in the plan of work
-COLLECTIVE_TODO = ("the collective atom is not ported yet "
-                   "(ROADMAP.md, queue 2, item 3: CollectiveAtom "
-                   "on torch.distributed)")
-
-
 @dataclass(frozen=True)
 class CollectiveSpec:
     axis: Optional[str] = None           # None: the mesh's last axis
     kind: str = "all-reduce"
+
+    def build(self, mesh, backend: str = "torch") -> "CollectiveAtom":
+        return CollectiveAtom(mesh, axis=self.axis, kind=self.kind,
+                              backend=backend)
 
     def quant_for(self, mesh_spec) -> CollectiveQuant:
         """Quantization for the mesh a *worker* will build from
@@ -438,6 +442,114 @@ class MemoryAtom(Atom):
     def seconds(self, nbytes: float, hw: HardwareSpec) -> float:
         bw = hw.hbm_bw * hw.hbm_derate
         return nbytes / bw if bw else 0.0
+
+
+# ---------------------------------------------------------------------------
+# Collective (network)
+# ---------------------------------------------------------------------------
+
+class CollectiveAtom(Atom):
+    resource = "ici_bytes"
+
+    def __init__(self, mesh=None, axis: Optional[str] = None,
+                 kind: str = "all-reduce", backend: str = "torch"):
+        """``mesh``: a ``repro_torch.launch.mesh.Mesh`` (every shard on
+        its one device, where the atom runs); ``axis``: the mesh axis the
+        collective runs along (default its last)."""
+        self.mesh = mesh
+        self.axis = axis or (mesh.axis_names[-1] if mesh is not None
+                             else None)
+        self.kind = kind
+        self.backend = check_backend(backend)
+        self._loop_fn: Optional[Callable] = None
+
+    def spec(self) -> CollectiveSpec:
+        return CollectiveSpec(axis=self.axis, kind=self.kind)
+
+    def quant(self) -> CollectiveQuant:
+        """This atom's fused-segment quantization (needs the mesh)."""
+        return CollectiveQuant(n=self.mesh.shape[self.axis], kind=self.kind)
+
+    def loop_operand(self, block_elems: int = COLL_BLOCK_ELEMS
+                     ) -> torch.Tensor:
+        """The fused segment's collective carry: one fixed block per shard
+        of the axis, (n, block_elems), on the mesh's device."""
+        n = self.mesh.shape[self.axis]
+        return torch.ones((n, block_elems), dtype=torch.float32,
+                          device=self.mesh.device)
+
+    def loop_body(self) -> Callable:
+        """One fused collective iteration on the ``loop_operand`` carry: a
+        shape-invariant collective over the fixed block — unlike
+        ``_coll_fn`` (whose all-gather grows its output), the result always
+        matches the input shape so a segment can carry it.  Values are kept
+        bounded (the all-reduce's sum rescaled by 1/n) because one segment
+        may loop thousands of iterations.  The plain version, a new tensor
+        a step: the ``"torch"`` runner walks a segment's rows with it, and
+        the ``"cuda"`` runner runs the same step inside the segment kernel
+        (``csrc/coll.cuh``) instead."""
+        if self._loop_fn is None:
+            kind = self.kind
+            self._loop_fn = lambda x: coll_ref.loop_step(x, dim=0, kind=kind)
+        return self._loop_fn
+
+    def _coll_fn(self) -> Callable:
+        """The per-sample collective over a plan's shards: the sum over the
+        axis (no 1/n), all n blocks gathered, or the shards shifted one
+        along the axis."""
+        fn = coll_ops.collective if self.backend == "cuda" \
+            else coll_ref.collective
+        dim, kind = self.mesh.dim(self.axis), self.kind
+        return lambda x: fn(x, dim=dim, kind=kind)
+
+    def quantized_wire_bytes(self, n_elems: int) -> float:
+        """The wire bytes an ``n_elems``-operand plan actually emulates
+        (the ring model applied to the quantized per-chip shard) — note
+        tiny amounts clamp UP to one element per shard, so a sub-``4n``-byte
+        leg emulates more than it consumes; the emulator reports this as
+        ``emulated_ici_bytes`` so predicted-vs-emulated stays honest."""
+        n = self.mesh.shape[self.axis]
+        factor = collective_factor(self.kind, n)
+        return factor * 4.0 * n_elems / n
+
+    def plan(self, wire_bytes: float) -> Plan:
+        if self.mesh is None or wire_bytes <= 0:
+            return Plan.noop()
+        n = self.mesh.shape[self.axis]
+        factor = collective_factor(self.kind, n)
+        if factor <= 0.0:
+            # one shard all-reduces or gathers nothing: no wire to move.
+            # The JAX package inverts the ring model through
+            # max(factor, 1e-9) here and plans an operand of 2.5e8 floats
+            # a wire byte.
+            return Plan.noop()
+        # invert the ring model on the PER-CHIP shard:
+        # wire/chip = factor * shard_bytes  (all-reduce: 2*(n-1)/n)
+        shard_bytes = wire_bytes / factor
+        n_elems = max(int(shard_bytes / 4) * n, n)
+        n_elems = (n_elems // n) * n or n
+        # Quantized key: amounts rounding to the same shard size share one
+        # plan, and the plan reports the QUANTIZED amount it emulates,
+        # never the builder's raw wire_bytes, so every cache sharer agrees
+        # on what was moved.  Mesh identity is part of the key, with shard
+        # ids where the JAX package has device ids: the same tuple.
+        mesh_id = (tuple(sorted(self.mesh.shape.items())),
+                   self.mesh.shard_ids)
+        key = ("collective", self.kind, self.axis, mesh_id, n_elems)
+        return self._cached(key, lambda: self._build_plan(n_elems))
+
+    def _build_plan(self, n_elems: int) -> Plan:
+        """A plan over ``n_elems`` float32 along the axis: n_elems / n on
+        every shard of the mesh (replicated across its other axes)."""
+        fn = self._coll_fn()
+        n = self.mesh.shape[self.axis]
+        x = torch.ones(tuple(self.mesh.shape.values()) + (n_elems // n,),
+                       dtype=torch.float32, device=self.mesh.device)
+        return Plan(lambda: fn(x), self.quantized_wire_bytes(n_elems))
+
+    def seconds(self, wire_bytes: float, hw: HardwareSpec) -> float:
+        bw = hw.ici_bw * hw.ici_derate
+        return wire_bytes / bw if bw else 0.0
 
 
 # ---------------------------------------------------------------------------

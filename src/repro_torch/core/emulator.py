@@ -28,9 +28,12 @@ Two execution paths share that contract:
 
 Both paths consume the profile's resource vectors in the same order with
 the same count-scaling, so reported ``consumed`` totals are bit-identical
-to each other and to the JAX package's.  Wire bytes are accounted but not
-executed: the collective atom is not ported yet, so the emulator owns no
-mesh.  ``EmulationReport`` and ``FleetReport`` serialize exactly as the JAX
+to each other and to the JAX package's.  Wire bytes execute when the
+emulator owns a mesh (``Emulator(mesh=...)``, ``attach_collective``): per
+sample through the collective atom, fused as the segment's wire rows; a
+meshless emulator accounts them without moving them.  A mesh's shards all
+live on the emulator's device (``repro_torch.launch.mesh``).
+``EmulationReport`` and ``FleetReport`` serialize exactly as the JAX
 package's do, so reports cross between the two.
 """
 from __future__ import annotations
@@ -42,7 +45,7 @@ from concurrent.futures import wait as futures_wait
 from dataclasses import dataclass, field
 from typing import Dict, Iterable, List, Optional
 
-from repro_torch.core.atoms import (COLLECTIVE_TODO, CollectiveSpec,
+from repro_torch.core.atoms import (CollectiveAtom, CollectiveSpec,
                                     ComputeAtom, ComputeSpec, MemoryAtom,
                                     MemorySpec, PlanCache, StorageAtom,
                                     StorageSpec, check_backend)
@@ -50,7 +53,7 @@ from repro_torch.core.calibrate import HostCalibration, calibrate
 from repro_torch.core.metrics import ResourceVector, Sample, SynapseProfile
 from repro_torch.core.schedule import (CompiledSchedule, FusedSegment,
                                        SegmentRunner, compile_schedule)
-from repro_torch.device import DeviceLike, resolve, sync
+from repro_torch.device import DeviceLike, resolve, same_device, sync
 from repro_torch.kernels.segment.kernel import TILES as SEGMENT_TILES
 
 #: fleet backends ``emulate_many``/``run_fleet`` accept (see
@@ -338,7 +341,9 @@ class EmulatorSpec:
     ``build()`` reconstructs an equivalent emulator anywhere — same
     quantization (tile/block sizes), same efficiency/speed knobs, and the
     *parent's* calibration, so a rebuilt emulator neither re-calibrates nor
-    drifts from the emulator that compiled its schedules.
+    drifts from the emulator that compiled its schedules.  ``mesh`` (a live
+    ``repro_torch.launch.mesh.Mesh``, built on the destination's own
+    device) attaches a CollectiveAtom per the collective spec.
     """
     calib: HostCalibration
     compute: ComputeSpec = ComputeSpec()
@@ -348,13 +353,16 @@ class EmulatorSpec:
     speed: float = 1.0
 
     def build(self, mesh=None, device: DeviceLike = None) -> "Emulator":
-        return Emulator(calib=self.calib, mesh=mesh,
-                        backend=self.compute.backend,
-                        compute_tile=self.compute.tile,
-                        mem_block=self.memory.block_bytes,
-                        storage_block=self.storage.block_bytes,
-                        efficiency=self.compute.efficiency, speed=self.speed,
-                        device=device)
+        em = Emulator(calib=self.calib, backend=self.compute.backend,
+                      compute_tile=self.compute.tile,
+                      mem_block=self.memory.block_bytes,
+                      storage_block=self.storage.block_bytes,
+                      efficiency=self.compute.efficiency, speed=self.speed,
+                      device=device)
+        if mesh is not None:
+            em.attach_collective((self.collective or CollectiveSpec()).build(
+                mesh, backend=em.compute.backend))
+        return em
 
 
 class Emulator:
@@ -370,10 +378,10 @@ class Emulator:
         paper's CPU-efficiency knob (see ComputeAtom); ``speed`` scales
         resource amounts (emulate faster/slower hosts); ``plan_cache``:
         share planned atoms across emulators of one device; ``device``:
-        where the atoms run (``"cuda"`` unless named; raises if absent)."""
+        where the atoms run (``"cuda"`` unless named; raises if absent);
+        ``mesh``: a ``repro_torch.launch.mesh.Mesh`` on that device, whose
+        last axis the collective atom moves wire bytes along."""
         self.device = resolve(device)
-        if mesh is not None:
-            raise NotImplementedError(COLLECTIVE_TODO)
         check_backend(backend)
         self.calib = calib or calibrate(device=self.device)
         self.compute = ComputeAtom(self.calib, tile=compute_tile,
@@ -382,6 +390,7 @@ class Emulator:
         self.memory = MemoryAtom(self.calib, block_bytes=mem_block,
                                  backend=backend, device=self.device)
         self.storage = StorageAtom(self.calib, block_bytes=storage_block)
+        self.collective = None
         self.speed = speed
         self.plan_cache = None
         self._fleet_lock = threading.Lock()
@@ -391,21 +400,44 @@ class Emulator:
                                        block_bytes=mem_block,
                                        device=self.device, backend=backend,
                                        ring=self.memory.ring)
+        if mesh is not None:
+            self.attach_collective(CollectiveAtom(mesh, backend=backend))
         if plan_cache is not None:
             self.set_plan_cache(plan_cache)
 
     def set_plan_cache(self, cache: Optional[PlanCache]) -> None:
-        """Route compute/memory plans through a shared cache (``None``
-        detaches it — plans go back to per-call construction)."""
+        """Route compute/memory/collective plans through a shared cache
+        (``None`` detaches it — plans go back to per-call construction)."""
         self.plan_cache = cache
         self.compute.cache = cache
         self.memory.cache = cache
+        if self.collective is not None:
+            self.collective.cache = cache
+
+    def attach_collective(self, atom: CollectiveAtom) -> None:
+        """Install a (mesh-bound) collective atom after construction,
+        keeping the segment runner's collective carry and the plan cache
+        routing in sync — ``EmulatorSpec.build`` uses this to give fleet
+        workers their per-worker mesh.  The mesh's shards must live on
+        this emulator's device."""
+        if atom.mesh is not None and not same_device(atom.mesh.device,
+                                                     self.device):
+            raise ValueError(
+                f"the mesh's shards live on {atom.mesh.device} but this "
+                f"emulator runs on {self.device}: build the mesh on the "
+                "emulator's device")
+        self.collective = atom
+        self._segments.set_collective(atom)
+        if self.plan_cache is not None:
+            atom.cache = self.plan_cache
 
     def spec(self) -> EmulatorSpec:
         """This emulator's picklable recipe (see ``EmulatorSpec``)."""
         return EmulatorSpec(
             calib=self.calib, compute=self.compute.spec(),
             memory=self.memory.spec(), storage=self.storage.spec(),
+            collective=(self.collective.spec()
+                        if self.collective is not None else None),
             speed=self.speed)
 
     def compile(self, profile: SynapseProfile, *, flops_scale: float = 1.0,
@@ -414,15 +446,18 @@ class Emulator:
                 mesh_spec=None) -> CompiledSchedule:
         """Lower a profile to its fused schedule (inspection / pre-warm /
         detach-and-ship).  ``mesh_spec`` quantizes wire-byte runs into
-        mesh-bound segment rows for the mesh a replayer would own — this
-        process needs no mesh of its own (and this package cannot replay
-        such rows yet).  ``keep_collectives=True`` lowers wire runs to
-        barrier steps instead."""
+        mesh-bound segment rows for the mesh the *workers* will build —
+        this process needs no mesh of its own.  ``keep_collectives=True``
+        is the barrier-step fallback instead: wire runs replay per-sample
+        through the replaying emulator's CollectiveAtom."""
         quant = None
         if mesh_spec is not None:
-            quant = CollectiveSpec().quant_for(mesh_spec)
+            spec = (self.collective.spec() if self.collective is not None
+                    else CollectiveSpec())
+            quant = spec.quant_for(mesh_spec)
         return compile_schedule(_collapse(profile.samples),
                                 compute=self.compute, memory=self.memory,
+                                collective=self.collective,
                                 flops_scale=flops_scale,
                                 mem_scale=mem_scale, speed=self.speed,
                                 keep_collectives=keep_collectives,
@@ -431,8 +466,8 @@ class Emulator:
     def _plan_sample(self, r: ResourceVector, flops_scale=1.0,
                      storage_scale=1.0, mem_scale=1.0):
         """Plan one sample's device legs as (resource kind, Plan) pairs plus
-        its host-side storage plans.  Wire bytes plan nothing: there is no
-        collective atom to move them (they are still accounted)."""
+        its host-side storage plans.  Wire bytes plan a collective only on
+        an emulator with a mesh (they are accounted either way)."""
         thunks = []
         if r.flops > 0:
             thunks.append(("flops",
@@ -440,6 +475,9 @@ class Emulator:
         if r.hbm_bytes > 0:
             thunks.append(("hbm",
                            self.memory.plan(r.hbm_bytes * mem_scale / self.speed)))
+        wire = r.ici_total
+        if wire > 0 and self.collective is not None:
+            thunks.append(("ici", self.collective.plan(wire / self.speed)))
         storage_thunks = []
         if r.storage_write_bytes > 0:
             storage_thunks.append(self.storage.plan_write(
@@ -458,7 +496,9 @@ class Emulator:
                         storage_scale, mem_scale, consumed, per_sample,
                         verify: bool):
         """Replay one collapsed run the per-sample way; returns the updated
-        consumed vector and the number of device dispatches issued.
+        consumed vector, the number of device dispatches issued, how many
+        of those were executable collectives, and the quantized wire bytes
+        those collectives emulated.
 
         Consecutive identical samples with no storage leg execute as a
         single fused consumption (count × amounts): ordering semantics only
@@ -474,6 +514,8 @@ class Emulator:
         thunks, storage_thunks = self._plan_sample(
             rr, flops_scale, storage_scale, mem_scale)
         dispatches = 0
+        coll_dispatches = 0
+        emulated_ici = 0.0
         for _ in range(reps):
             t0 = time.perf_counter()
 
@@ -486,10 +528,13 @@ class Emulator:
                 th = threading.Thread(target=io_worker)
                 th.start()
             tokens = []
-            for _, t in thunks:                     # async device dispatch
+            for kind, t in thunks:                  # async device dispatch
                 tok = t.launch()
                 if tok is not None:                 # noop plans don't count
                     tokens.append(tok)
+                    if kind == "ici":
+                        coll_dispatches += 1
+                        emulated_ici += t.amount    # quantized, see atoms
             dispatches += len(tokens)
             if tokens:
                 sync(tokens)                        # one sync per sample
@@ -498,7 +543,7 @@ class Emulator:
             per_sample.append(time.perf_counter() - t0)
             if verify:
                 consumed = consumed.add(rr)
-        return consumed, dispatches
+        return consumed, dispatches, coll_dispatches, emulated_ici
 
     def replay(self, sched: CompiledSchedule, *, command: str = "",
                planned: Optional[ResourceVector] = None,
@@ -511,17 +556,37 @@ class Emulator:
         a schedule compiled elsewhere — by this package or by the JAX
         package, through ``CompiledSchedule.detach`` — replays with
         identical consumption accounting: segments run as one dispatch
-        each, and barrier steps replay per-sample through this emulator's
-        atoms.
+        each — mesh-bound segments execute their wire rows inside that
+        same dispatch on this emulator's mesh — and barrier steps replay
+        per-sample through this emulator's atoms, including collective
+        legs when this emulator owns a mesh.
         """
         if sched.mesh_bound:
-            raise RuntimeError(
-                "schedule carries mesh-bound collective segments but this "
-                f"emulator owns no mesh: {COLLECTIVE_TODO}; recompile it "
-                "with keep_collectives=False to fold the wire bytes")
+            if self.collective is None or self.collective.mesh is None:
+                raise RuntimeError(
+                    "schedule carries mesh-bound collective segments but "
+                    "this emulator owns no mesh; recompile it with "
+                    "keep_collectives=True (barrier fallback) or build the "
+                    "emulator with a mesh")
+            mine = self.collective.quant()
+            want = sched.collective_quant
+            if want is None:
+                raise RuntimeError(
+                    "mesh-bound schedule carries no collective_quant — "
+                    "its tables cannot be validated against this mesh; "
+                    "recompile it (compile_schedule records the quant "
+                    "whenever it fuses wire runs)")
+            if want != mine:
+                raise RuntimeError(
+                    f"schedule was quantized for {want} but this "
+                    f"emulator's mesh gives {mine}; replaying would emulate "
+                    "skewed wire amounts — recompile for this mesh")
         consumed = ResourceVector()
         per_sample: List[float] = []
         dispatches = 0
+        coll_dispatches = 0
+        emulated_ici = 0.0
+        quant = sched.collective_quant
         t_start = time.perf_counter()
         for step in sched.steps:
             if isinstance(step, FusedSegment):
@@ -529,6 +594,12 @@ class Emulator:
                 dispatched = self._segments.run(step)  # ONE dispatch+sync
                 dt = time.perf_counter() - t0
                 dispatches += int(dispatched)
+                if step.mesh_bound:
+                    # one executed wire leg per collective-bearing row —
+                    # the same granularity the barrier fallback counts at
+                    coll_dispatches += int((step.table[:, 2] > 0).sum())
+                    emulated_ici += quant.emulated_bytes(
+                        step.collective_iters)
                 # apportion the segment's wall time across its rows so
                 # per_sample_s keeps one entry per executed sample
                 per_sample.extend([dt / step.n_rows] * step.n_rows)
@@ -536,16 +607,20 @@ class Emulator:
                     for rr in step.rows:
                         consumed = consumed.add(rr)
             else:
-                consumed, d = self._run_per_sample(
+                consumed, d, c, e = self._run_per_sample(
                     step.resources, step.count, flops_scale,
                     storage_scale, mem_scale, consumed, per_sample,
                     verify)
                 dispatches += d
+                coll_dispatches += c
+                emulated_ici += e
         ttc = time.perf_counter() - t_start
         return EmulationReport(command=command, ttc_s=ttc,
                                n_samples=len(per_sample), consumed=consumed,
                                per_sample_s=per_sample, planned=planned,
-                               mode="fused", n_dispatches=dispatches)
+                               mode="fused", n_dispatches=dispatches,
+                               n_collective_dispatches=coll_dispatches,
+                               emulated_ici_bytes=emulated_ici)
 
     def emulate(self, profile: SynapseProfile, *, flops_scale: float = 1.0,
                 storage_scale: float = 1.0, mem_scale: float = 1.0,
@@ -556,6 +631,7 @@ class Emulator:
         if use_fused:
             sched = compile_schedule(runs, compute=self.compute,
                                      memory=self.memory,
+                                     collective=self.collective,
                                      flops_scale=flops_scale,
                                      mem_scale=mem_scale, speed=self.speed)
             rep = self.replay(sched, command=profile.command,
@@ -568,18 +644,24 @@ class Emulator:
         consumed = ResourceVector()
         per_sample: List[float] = []
         dispatches = 0
+        coll_dispatches = 0
+        emulated_ici = 0.0
         for r, count in runs:
-            consumed, d = self._run_per_sample(
+            consumed, d, c, e = self._run_per_sample(
                 r, count, flops_scale, storage_scale, mem_scale,
                 consumed, per_sample, verify)
             dispatches += d
+            coll_dispatches += c
+            emulated_ici += e
         ttc = time.perf_counter() - t_start
         return EmulationReport(command=profile.command, ttc_s=ttc,
                                n_samples=len(per_sample), consumed=consumed,
                                per_sample_s=per_sample,
                                planned=profile.totals,
                                mode="per_sample",
-                               n_dispatches=dispatches)
+                               n_dispatches=dispatches,
+                               n_collective_dispatches=coll_dispatches,
+                               emulated_ici_bytes=emulated_ici)
 
     def emulate_many(self, profiles: Iterable[SynapseProfile], *,
                      flops_scale: float = 1.0, storage_scale: float = 1.0,
@@ -621,9 +703,10 @@ class Emulator:
         ``FleetReport.scaling``.  ``FleetConfig.remote(...)`` ships the
         same bundles over framed TCP to host agents
         (``python -m repro_torch.fleet.agent``), whose workers replay on
-        this emulator's device too.  See ``repro_torch.fleet``.  Not
-        ported yet, and raising ``NotImplementedError``: a ``mesh_spec``
-        (the collective atom).
+        this emulator's device too.  With ``mesh=MeshSpec(...)`` every
+        process or remote worker builds its own mesh on that device, so
+        collective legs *execute* in fleet mode.  See
+        ``repro_torch.fleet``.
 
         ``config.timeout`` bounds each fleet run.  The process and remote
         executors enforce it strictly (the scheduler deadline); the thread

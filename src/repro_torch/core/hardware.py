@@ -62,9 +62,10 @@ HOST_ARCHER_NODE = HardwareSpec(name="archer_e5_2697v2", peak_flops=518e9,
 
 # NVIDIA H100 SXM, datasheet figures: the atoms burn float32, so the peak is
 # float32 outside the tensor cores (67 TFLOP/s), not the bf16 rate; 3.35 TB/s
-# of HBM3, 80 GB; one card, no wire
+# of HBM3, 80 GB; NVLink 900 GB/s to the host's other cards, 450 GB/s each
+# way (NVIDIA's H100 datasheet), the wire rate the predictor reads
 H100_SXM = HardwareSpec(name="h100_sxm_fp32_datasheet", peak_flops=67e12,
-                        hbm_bw=3.35e12, ici_bw=0.0, ici_links=0,
+                        hbm_bw=3.35e12, ici_bw=450e9, ici_links=1,
                         mem_per_chip=80e9)
 
 REGISTRY: Dict[str, HardwareSpec] = {

@@ -24,9 +24,9 @@ lowers a collapsed run list into a small number of fused segments instead:
 The table compiler and the payloads (``detach``/``rehydrate_schedule``) are
 the JAX package's, so tables and payloads cross between the two packages
 bit-identically.  Wire-byte quantization is a picklable
-``CollectiveQuant``; a schedule quantized for a mesh (mesh-bound) loads
-here, but executing its wire rows needs the collective atom, which is not
-ported yet, so replaying it raises.
+``CollectiveQuant``; a schedule quantized for a mesh (mesh-bound) replays
+its wire rows inside the segment's one dispatch on the replaying
+emulator's mesh, and a runner with no mesh refuses it.
 
 Tables are padded to power-of-two lengths with all-zero no-op rows, as
 the JAX package pads them (its jit compiles one program per padded
@@ -40,8 +40,8 @@ from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
 
-from repro_torch.core.atoms import (COLLECTIVE_TODO, CollectiveQuant,
-                                    ComputeAtom, MemoryAtom, check_backend,
+from repro_torch.core.atoms import (CollectiveQuant, ComputeAtom,
+                                    MemoryAtom, check_backend,
                                     compute_burn_body, compute_operand,
                                     memory_operand, memory_stream_body)
 from repro_torch.core.metrics import ResourceVector
@@ -280,16 +280,19 @@ class SegmentRunner:
       * ``"cuda"``: ONE launch of the table-driven segment kernel
         (``repro_torch.kernels.segment``, ``csrc/segment.cu``), which reads
         the table from device memory and runs each row's burn iterations
-        (the compute atom's cluster burn, carrying y across rows) and ring
+        (the compute atom's cluster burn, carrying y across rows), ring
         passes (the memory atom's ring, its pass counter carried across
-        rows and launches), with a grid barrier between rows.  Tiles 64,
-        128 and 256 only; any other tile raises.  ``run`` checks the
-        kernel's device counters against the table after its sync.
+        rows and launches) and collective steps (the collective atom's
+        loop body on its carry, stepped in place), with a grid barrier
+        between rows.  Tiles 64, 128 and 256 only; any other tile raises.
+        ``run`` checks the kernel's device counters against the table
+        after its sync.
       * ``"torch"``: the padded table is walked on the host and each row
         issues its iterations as PyTorch ops — ``row[0]`` compute-burn
         iterations on the tile, then ``row[1]`` memory-stream iterations on
-        the block — with one sync at the end of the segment; on a card
-        every iteration is several CUDA launches issued from the host.
+        the block, then ``row[2]`` steps of the collective atom's loop
+        body — with one sync at the end of the segment; on a card every
+        iteration is several CUDA launches issued from the host.
 
     Runs are specialized to the carries a segment actually needs — a
     compute-only segment does not touch the (potentially tens-of-MB)
@@ -298,20 +301,32 @@ class SegmentRunner:
     passes stream: the Emulator passes its ``MemoryAtom.ring``, so its
     per-sample plans and its segments share one ring and one pass count;
     a runner built alone streams the ring of a ``MemoryAtom`` of its own.
-    Safe to share across threads: operand init is guarded, operands are
-    read-only, and ring passes are numbered under the ring's lock.
+    Safe to share across threads: operand init is guarded, the burn's and
+    the stream's operands are read-only, ring passes are numbered under
+    the ring's lock, and the ``"cuda"`` wire carry, stepped in place by
+    launches that serialize on the stream, starts at ones, a fixed point
+    of every kind's step.
+
+    ``collective`` (a mesh-bound ``CollectiveAtom``) supplies the
+    per-iteration wire step and its fixed-block carry; without one,
+    launching a mesh-bound segment raises — a meshless replayer must
+    recompile with ``keep_collectives=True`` instead of silently dropping
+    wire work.
     """
 
     def __init__(self, tile: int = 256, block_bytes: int = 1 << 24,
                  device: DeviceLike = None, backend: str = "torch",
-                 ring: Optional[Callable[[], Ring]] = None):
+                 ring: Optional[Callable[[], Ring]] = None,
+                 collective=None):
         self.tile = tile
         self.block_bytes = block_bytes
         self.device = resolve(device)
         self.backend = check_backend(backend)
+        self.collective = collective
         self._lock = threading.Lock()
         self._xc = None
         self._xm = None
+        self._xcoll = None
         self._ring = ring or MemoryAtom(block_bytes=block_bytes,
                                         backend=backend,
                                         device=self.device).ring
@@ -333,44 +348,71 @@ class SegmentRunner:
                     self._xm = memory_operand(self.block_bytes, self.device)
         return self._xc, self._xm
 
+    def set_collective(self, atom) -> None:
+        """Swap the collective atom, dropping the collective carry: it lies
+        on the OLD atom's mesh."""
+        with self._lock:
+            self.collective = atom
+            self._xcoll = None
+
+    def _coll_operand(self):
+        if self._xcoll is None:
+            with self._lock:
+                if self._xcoll is None:
+                    self._xcoll = self.collective.loop_operand()
+        return self._xcoll
+
     @staticmethod
-    def _segment(y, m, table: np.ndarray):
-        """Walk ``table`` on the host; ``y`` (the compute carry) or ``m``
-        (the memory carry) is None when no row uses it."""
-        for ci, mi, _ in table.tolist():
+    def _segment(y, m, w, table: np.ndarray, coll_step=None):
+        """Walk ``table`` on the host; ``y`` (the compute carry), ``m``
+        (the memory carry) or ``w`` (the collective carry, stepped by
+        ``coll_step``) is None when no row uses it."""
+        for ci, mi, wi in table.tolist():
             if y is not None:
                 for _ in range(ci):
                     y = compute_burn_body(y)
             if m is not None:
                 for _ in range(mi):
                     m = memory_stream_body(m)
-        return y, m
+            if w is not None:
+                for _ in range(wi):
+                    w = coll_step(w)
+        return y, m, w
 
     def launch(self, segment: FusedSegment):
         """Issue the whole segment asynchronously; returns the unsynced
-        ``SegmentRun`` — ``y``, the compute carry, and ``slot``, the memory
-        carry, either None when no row uses it; wait for them with
-        ``repro_torch.device.sync``, then ``settle()`` it — or ``None`` when
-        every row quantized to zero iterations (nothing to dispatch)."""
+        ``SegmentRun`` — ``y``, the compute carry, ``slot``, the memory
+        carry, and ``w``, the collective carry, each None when no row uses
+        it; wait for them with ``repro_torch.device.sync``, then
+        ``settle()`` it — or ``None`` when every row quantized to zero
+        iterations (nothing to dispatch)."""
         with_c = segment.compute_iters > 0
         with_m = segment.memory_iters > 0
-        if segment.collective_iters > 0:
-            raise RuntimeError(
-                "mesh-bound segment (collective iterations in its table): "
-                f"{COLLECTIVE_TODO}; recompile the schedule with "
-                "keep_collectives=False to fold the wire bytes")
-        if not (with_c or with_m):
+        with_coll = segment.collective_iters > 0
+        if not (with_c or with_m or with_coll):
             return None
+        if with_coll and (self.collective is None
+                          or self.collective.mesh is None):
+            raise RuntimeError(
+                "mesh-bound segment (collective iterations in its table) "
+                "but this runner has no mesh-bound CollectiveAtom; "
+                "recompile the schedule with keep_collectives=True to "
+                "replay wire legs per-sample, or give the emulator a mesh")
         padded = _next_pow2(segment.n_rows)
         table = np.zeros((padded, 3), dtype=np.int32)
         table[:segment.n_rows] = segment.table
+        w = self._coll_operand() if with_coll else None
         if self.backend == "cuda":
             return segment_ops.segment(
                 table, x=self._compute_operand() if with_c else None,
-                ring=self._ring() if with_m else None)
-        xc, xm = self._operands()
-        return SegmentRun(*self._segment(xc if with_c else None,
-                                         xm if with_m else None, table))
+                ring=self._ring() if with_m else None, w=w,
+                kind=self.collective.kind if with_coll else "all-reduce")
+        xc = xm = None
+        if with_c or with_m:       # wire-only segments skip the (big)
+            xc, xm = self._operands()  # compute/memory operands entirely
+        return SegmentRun(*self._segment(
+            xc if with_c else None, xm if with_m else None, w, table,
+            self.collective.loop_body() if with_coll else None))
 
     def run(self, segment: FusedSegment) -> bool:
         """Dispatch, sync and settle: the segment's samples are done on
@@ -379,6 +421,6 @@ class SegmentRunner:
         run = self.launch(segment)
         if run is None:
             return False
-        sync((run.y, run.slot))
+        sync(run.tensors())
         run.settle()
         return True

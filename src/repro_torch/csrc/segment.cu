@@ -2,14 +2,16 @@
 //
 // Replaces src/repro/core/schedule.py:SegmentRunner._fn (not a Pallas
 // kernel: a jitted lax.scan over the segment's padded int32 (n, 3) table).
-// Per row r, in row order:
+// Per row r, in row order, as the scan orders the legs:
 //   * row[r][0] iterations of the burn, y <- (y @ x) * 0.5 + 0.25 (float32
 //     with FMA, no TF32), y starting at x and carried across rows, so after
 //     the segment y == burn_tile(x, iters = sum of row[.][0]);
 //   * row[r][1] in-place passes over the memory atom's ring, continuing the
 //     ring's pass counter (`start`) across rows and launches;
-//   * row[r][2], the collective steps, is never > 0 here: the host raises
-//     before launching a mesh-bound segment.
+//   * row[r][2] steps of the collective atom's loop body (coll.cuh) on the
+//     carried (n, COLL_BLOCK_ELEMS) float32 operand of a mesh-bound
+//     segment, in place: the n shards of a mesh whose shards all live on
+//     this card.
 // Row r + 1 starts only when every CTA has finished row r: the emulator's
 // sample barrier (core/emulator.py), here a grid barrier between non-empty
 // rows.  Within a row the CTAs that own no burn panel start streaming while
@@ -17,8 +19,10 @@
 // rows, and the table's pow2 padding) are skipped without a barrier.
 //
 // Bound.  The burn's float32 FMA rate (2 T^3 flops an iteration at 67
-// TFLOP/s) and the ring's device-memory rate (2 * block bytes a pass at
-// 3.35 TB/s), in sequence within a row as in the scan.
+// TFLOP/s), the ring's device-memory rate (2 * block bytes a pass at
+// 3.35 TB/s) and the wire leg's L2 rate (its carry, n x 128 KiB, stays in
+// L2: reading and writing it once a step), in sequence within a row as in
+// the scan.
 //
 // Design.
 //   * The compute leg is the burn's cluster design (burn.cuh, shared with
@@ -31,6 +35,9 @@
 //   * The memory leg is the ring pass (ring.cuh): every CTA of the grid
 //     owns a fixed slice of every slot, so pass p + 1 never waits on
 //     another CTA's pass p and a row needs no barrier inside it.
+//   * The wire leg is the collective loop body (coll.cuh): each thread of
+//     the grid owns whole columns of the carry, all n shards of them, so a
+//     step needs no barrier either.
 //   * The grid is one CTA an SM, at most 2 * the active clusters that
 //     cudaOccupancyMaxActiveClusters reports, and at least the burn's CTAs.
 //   * The row barrier is cg::this_grid().sync(), so the kernel REQUIRES a
@@ -41,10 +48,11 @@
 //     without the attribute.  Segment launches of one process go to the
 //     current stream (a thread fleet shares it), so they serialize;
 //     kernels of other processes time-slice the card whole.
-//   * Device counters: each CTA adds the burn iterations it ran and the
-//     ring passes it streamed to counts[0] and counts[1] once, at its end;
-//     the host checks counts[0] == sum(row[0]) * burn CTAs and counts[1] ==
-//     sum(row[1]) * grid after its sync.
+//   * Device counters: each CTA adds the burn iterations it ran, the ring
+//     passes it streamed and the collective steps it took to counts[0],
+//     counts[1] and counts[2] once, at its end; the host checks counts[0]
+//     == sum(row[0]) * burn CTAs, counts[1] == sum(row[1]) * grid and
+//     counts[2] == sum(row[2]) * grid after its sync.
 #include <atomic>
 #include <cstdint>
 
@@ -52,6 +60,7 @@
 #include <cuda_runtime.h>
 
 #include "burn.cuh"
+#include "coll.cuh"
 #include "ring.cuh"
 
 namespace cg = cooperative_groups;
@@ -68,7 +77,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     segment_kernel(const int* __restrict__ table, int n_rows,
                    const float* __restrict__ x, float* __restrict__ out,
                    float4* __restrict__ ring, int64_t nvec, int64_t slots,
-                   int64_t start, int64_t total_ci,
+                   int64_t start, int64_t total_ci, float* __restrict__ coll,
+                   int64_t coll_n, int64_t coll_inner, int coll_kind,
                    unsigned long long* counts) {
   using B = Burn<T>;
   cg::cluster_group cluster = cg::this_cluster();
@@ -86,12 +96,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     cluster.sync();
   }
   cg::grid_group grid = cg::this_grid();
-  int64_t it = 0, pass = start;
+  int64_t it = 0, pass = start, steps = 0;
   bool started = false;
   for (int r = 0; r < n_rows; ++r) {
     const int ci = table[3 * r];
     const int mi = table[3 * r + 1];
-    if (ci <= 0 && mi <= 0) continue;
+    const int wi = coll != nullptr ? table[3 * r + 2] : 0;
+    if (ci <= 0 && mi <= 0 && wi <= 0) continue;
     if (started) grid.sync();
     started = true;
     if (burns && ci > 0) {
@@ -104,11 +115,18 @@ __global__ void __launch_bounds__(kThreads, 1)
                            gridDim.x);
       pass += mi;
     }
+    if (wi > 0) {
+      synapse::coll_steps(coll, coll_n, coll_inner, coll_kind, wi,
+                          int64_t(blockIdx.x) * blockDim.x + threadIdx.x,
+                          int64_t(gridDim.x) * blockDim.x);
+      steps += wi;
+    }
   }
   if (burns) synapse::burn_store_panel<T>(panel, rank, row0, it, out);
   if (threadIdx.x == 0) {
     atomicAdd(counts, static_cast<unsigned long long>(burns ? it : 0));
     atomicAdd(counts + 1, static_cast<unsigned long long>(pass - start));
+    atomicAdd(counts + 2, static_cast<unsigned long long>(steps));
   }
 }
 
@@ -174,16 +192,23 @@ cudaError_t grid_for(int64_t tile, int device, int64_t* info) {
   return err;
 }
 
+// the wire leg's carry: n shards of `inner` floats, stepped by `kind`
+struct Coll {
+  float* carry;
+  int64_t n, inner;
+  int kind;
+};
+
 template <int T>
 cudaError_t launch(const int* table, int n_rows, const float* x, float* out,
                    float4* ring, int64_t nvec, int64_t slots, int64_t start,
-                   int64_t total_ci, unsigned long long* counts, int grid,
-                   cudaStream_t s) {
+                   int64_t total_ci, const Coll& coll,
+                   unsigned long long* counts, int grid, cudaStream_t s) {
   cudaLaunchAttribute attr[2];
   const cudaLaunchConfig_t cfg = segment_config<T>(grid, s, attr);
-  const cudaError_t err =
-      cudaLaunchKernelEx(&cfg, segment_kernel<T>, table, n_rows, x, out,
-                         ring, nvec, slots, start, total_ci, counts);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, segment_kernel<T>, table, n_rows, x, out, ring, nvec, slots,
+      start, total_ci, coll.carry, coll.n, coll.inner, coll.kind, counts);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -199,21 +224,28 @@ extern "C" int synapse_segment_grid(int64_t tile, int64_t device,
                   static_cast<int64_t*>(info));
 }
 
-// table: n_rows x 3 int32 on `device` (rows >= 0, row[2] == 0); x and out:
-// tile x tile float32 (tile 64, 128 or 256), or null when no row burns
-// (total_ci == 0); ring: `slots` float32 blocks of n elements (n % 4 == 0),
-// or null when no row streams; counts: 2 zeroed int64 on `device`.  All
+// table: n_rows x 3 int32 on `device` (rows >= 0); x and out: tile x tile
+// float32 (tile 64, 128 or 256), or null when no row burns (total_ci ==
+// 0); ring: `slots` float32 blocks of n elements (n % 4 == 0), or null
+// when no row streams; coll: the wire leg's carry, coll_n shards of
+// coll_inner float32 each, stepped by the loop body of coll_kind (0
+// all-reduce, 1 all-gather, 2 collective-permute), or null when no row
+// takes collective steps; counts: 3 zeroed int64 on `device`.  All
 // 16-byte aligned.  One cooperative launch on `stream`; returns its error
 // (the driver's refusal of the cooperative launch included), or
 // cudaSuccess.
 extern "C" int synapse_segment(const void* table, int64_t n_rows,
                                const void* x, void* out, void* ring,
                                int64_t n, int64_t slots, int64_t start,
-                               int64_t tile, int64_t total_ci, void* counts,
+                               int64_t tile, int64_t total_ci, void* coll,
+                               int64_t coll_n, int64_t coll_inner,
+                               int64_t coll_kind, void* counts,
                                int64_t device, void* stream) {
   if (n_rows < 1 || n_rows > (int64_t(1) << 30) || total_ci < 0 ||
       start < 0 || (ring != nullptr && (n <= 0 || n % 4 || slots < 1)) ||
-      (total_ci > 0 && (x == nullptr || out == nullptr))) {
+      (total_ci > 0 && (x == nullptr || out == nullptr)) ||
+      (coll != nullptr && (coll_n < 1 || coll_inner < 1 || coll_kind < 0 ||
+                           coll_kind > 2))) {
     return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(static_cast<int>(device));
@@ -226,18 +258,20 @@ extern "C" int synapse_segment(const void* table, int64_t n_rows,
   const float* xf = static_cast<const float*>(x);
   float* of = static_cast<float*>(out);
   float4* rf = static_cast<float4*>(ring);
+  const Coll w = {static_cast<float*>(coll), coll_n, coll_inner,
+                  static_cast<int>(coll_kind)};
   unsigned long long* c = static_cast<unsigned long long*>(counts);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rows = static_cast<int>(n_rows);
   switch (tile) {
     case 64:
       return launch<64>(t, rows, xf, of, rf, n / 4, slots, start, total_ci,
-                        c, grid, s);
+                        w, c, grid, s);
     case 128:
       return launch<128>(t, rows, xf, of, rf, n / 4, slots, start, total_ci,
-                         c, grid, s);
+                         w, c, grid, s);
     default:
       return launch<256>(t, rows, xf, of, rf, n / 4, slots, start, total_ci,
-                         c, grid, s);
+                         w, c, grid, s);
   }
 }

@@ -32,6 +32,19 @@ def cli_device(device: str, prog: str) -> torch.device:
         raise SystemExit(f"{prog}: error: --device {device}: {e}") from None
 
 
+def same_device(a: DeviceLike, b: DeviceLike) -> bool:
+    """Whether two devices are one (a ``cuda`` with no index names the
+    current card)."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    cur = torch.cuda.current_device
+    return (cur() if a.index is None else a.index) == \
+        (cur() if b.index is None else b.index)
+
+
 def sync(token) -> None:
     """Wait until the device work that produced ``token`` is done.
 

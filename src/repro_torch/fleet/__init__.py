@@ -43,9 +43,9 @@ Thread, process or remote executor:
     the JAX package's bytes, but their pickles name the port's classes.
 
 A standing pool of either kind serves open-loop traffic through
-``repro_torch.service.StandingFleet``.  Not ported yet: meshes
-(``MeshSpec`` validates, but building one needs the collective atom;
-it raises ``NotImplementedError``).
+``repro_torch.service.StandingFleet``.  With ``mesh=MeshSpec(...)`` every
+process or remote worker builds its own mesh, every shard on its device,
+and replays mesh-bound segments there.
 """
 from repro_torch.fleet.bundle import (MeshSpec, ScheduleBundle,  # noqa: F401
                                       WorkerSpec, bundle_parents,

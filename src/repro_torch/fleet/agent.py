@@ -113,7 +113,8 @@ def serve(sock: socket.socket, n_workers: int) -> int:
                 return
         send(msg)
 
-    log(f"spawning {n_workers} local worker(s) on {spec.device}")
+    log(f"spawning {n_workers} local worker(s) on {spec.device}"
+        + (f" with mesh {list(spec.mesh.shape)}" if spec.mesh else ""))
     try:
         fleet = ProcessFleet(n_workers, spec)
         infos = fleet.warmup()

@@ -7,9 +7,10 @@ profile, with every live object stripped out: the detached schedule payload
 metadata.  The emulator configuration travels separately — once per worker,
 not once per bundle — as a ``WorkerSpec``: the parent's ``EmulatorSpec``
 (calibration + atom configs) plus an optional ``MeshSpec`` describing the
-device mesh each worker would build for itself, and the device the worker
-replays on.  The collective atom is not ported yet, so a ``MeshSpec``
-validates and pickles but cannot be built.
+device mesh each worker must build for itself, and the device the worker
+replays on.  Meshes hold live device tensors, so they never cross the
+process boundary; their *specs* do, which is what lets the
+``CollectiveAtom`` take part in process-fleet mode.
 """
 from __future__ import annotations
 
@@ -17,19 +18,19 @@ import math
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
 
-from repro_torch.core.atoms import COLLECTIVE_TODO
 from repro_torch.core.emulator import Emulator, EmulatorSpec
 from repro_torch.core.metrics import ResourceVector, SynapseProfile
 from repro_torch.core.schedule import CompiledSchedule, rehydrate_schedule
+from repro_torch.device import DeviceLike
 from repro_torch.fleet.chaos import ChaosPolicy
 
 
 @dataclass(frozen=True)
 class MeshSpec:
-    """Picklable description of the mesh a worker would build from its own
-    devices.  It validates as the JAX package's does; ``build`` raises until
-    the collective atom is ported, and the fleet entry points reject a mesh
-    before any worker is spawned.
+    """Picklable description of the mesh a worker builds on its own device
+    (``repro_torch.launch.mesh.make_mesh``): every shard on that one
+    device, the counterpart of the JAX package's forced host devices.  It
+    validates as the JAX package's does.
     """
     shape: Tuple[int, ...] = (2,)
     axes: Tuple[str, ...] = ("model",)
@@ -43,9 +44,11 @@ class MeshSpec:
     def device_count(self) -> int:
         return int(math.prod(self.shape))
 
-    def build(self):
-        """Construct the live mesh — not ported yet."""
-        raise NotImplementedError(COLLECTIVE_TODO)
+    def build(self, device: DeviceLike = None):
+        """Construct the live mesh on ``device`` (``"cuda"`` unless named)
+        — call only inside the owning process."""
+        from repro_torch.launch.mesh import make_mesh
+        return make_mesh(self.shape, self.axes, device)
 
 
 @dataclass(frozen=True)
@@ -123,13 +126,21 @@ def bundle_profile(emulator: Emulator, profile: SynapseProfile, *,
     """Compile one profile on ``emulator`` and detach it into a bundle.
 
     ``mesh_spec`` (the fleet's ``MeshSpec``) quantizes wire-byte runs into
-    mesh-bound fused segments for the mesh each worker would build; the
-    port's workers own no mesh yet, so the fleet entry points pass none.
-    The port's emulators own no mesh either, so with neither the wire
-    bytes fold into the rows' accounting, as the JAX package's meshless
-    parents do.  ``keep_collectives=True`` lowers wire runs to barrier
-    steps instead.
+    mesh-bound fused segments for the mesh each worker will build — this
+    process needs no mesh, and the workers replay collectives inside their
+    segments instead of per-sample barrier steps.
+    ``keep_collectives=True`` is the barrier-step fallback for parents
+    that know the workers own *a* mesh but not its shape.
     """
+    if mesh_spec is None and keep_collectives is None \
+            and emulator.collective is not None:
+        # a mesh-owning parent compiling for workers of unknown mesh must
+        # not bake ITS OWN mesh's quantization into the bundle — meshless
+        # workers would refuse the mesh-bound segments.  Barrier steps are
+        # the portable lowering (workers with a mesh execute them
+        # per-sample, workers without one skip the wire and keep the
+        # consumed accounting intact).
+        keep_collectives = True
     sched = emulator.compile(profile, flops_scale=flops_scale,
                              mem_scale=mem_scale,
                              keep_collectives=keep_collectives,

@@ -29,7 +29,8 @@ source is exhausted idle peers are retired back down to the floor
 ``ProcessFleet`` is the local instantiation: each peer is one spawn-based
 worker process (see ``repro_torch.fleet.worker``) behind a multiprocessing
 ``Pipe``, with its own CUDA context, emulator and plan cache on the device
-its ``WorkerSpec`` names.
+its ``WorkerSpec`` names, and — when the spec carries a ``MeshSpec`` — its
+own mesh, every shard on that device.
 ``repro_torch.fleet.transport.remote.RemoteFleet`` is the network
 instantiation: each peer is a TCP connection to a host agent that fronts
 several such worker processes on another machine.  Both inherit the same
@@ -85,7 +86,6 @@ from dataclasses import dataclass
 from typing import (Callable, Deque, Dict, Iterable, Iterator, List,
                     Optional, Set, Tuple)
 
-from repro_torch.core.atoms import COLLECTIVE_TODO
 from repro_torch.core.emulator import (EmulationReport, Emulator,
                                        FleetReport, ReportFold)
 from repro_torch.fleet.bundle import (ScheduleBundle, WorkerSpec,
@@ -1217,8 +1217,6 @@ class ProcessFleet(FleetBase):
         if min_workers is not None and not autoscale:
             raise ValueError("min_workers is the autoscale floor; pass "
                              "autoscale=True with it")
-        if spec.mesh is not None:
-            raise NotImplementedError(COLLECTIVE_TODO)
         super().__init__()
         self.spec = spec
         self.n_workers = n_workers
@@ -1383,8 +1381,10 @@ def run_process_fleet(emulator: Emulator, profiles, *, max_workers: int = 4,
     business, baked into the warm pool's spec); otherwise a pool sized
     ``min(max_workers, len(profiles))`` (or starting at ``min_workers``
     when ``autoscale``) is spawned and torn down around this one run.
-    The spawned workers replay on ``emulator.device``; ``mesh_spec``
-    raises ``NotImplementedError`` until the collective atom is ported.
+    The spawned workers replay on ``emulator.device``.  With
+    ``mesh_spec`` set, wire-byte runs compile to mesh-bound fused segments
+    and every worker builds its own mesh on that device — collective legs
+    move bytes inside the workers' segments.
     ``collect="totals"`` drops per-profile reports and returns aggregates
     only (the bounded-memory soak mode).
 
@@ -1407,8 +1407,6 @@ def run_process_fleet(emulator: Emulator, profiles, *, max_workers: int = 4,
     for dags — it drops exactly the per-node timing the critical path
     needs.
     """
-    if mesh_spec is not None:
-        raise NotImplementedError(COLLECTIVE_TODO)
     is_dag = hasattr(profiles, "parents_map")
     if is_dag and collect == "totals":
         raise ValueError(

@@ -51,7 +51,6 @@ import socket
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from repro_torch.core.atoms import COLLECTIVE_TODO
 from repro_torch.core.emulator import Emulator, FleetReport, ReportFold
 from repro_torch.fleet.bundle import WorkerSpec, bundle_profile
 from repro_torch.fleet.dag import critical_path
@@ -194,8 +193,6 @@ class RemoteFleet(FleetBase):
         if min_workers is not None and not autoscale:
             raise ValueError("min_workers is the autoscale floor; pass "
                              "autoscale=True with it")
-        if spec.mesh is not None:
-            raise NotImplementedError(COLLECTIVE_TODO)
         self.spec = spec
         self._autoscale = autoscale
         self._scale_min = max(1, min_workers or 1)
@@ -325,8 +322,9 @@ def run_remote_fleet(emulator: Emulator, profiles, *,
     assembled from ``hosts``/``listen``/``agents`` and torn down around
     this run — tearing down tells the agents to exit, so one-shot runs
     don't leave orphaned worker pools on other machines.  The agents'
-    workers replay on ``emulator.device``; ``mesh_spec`` raises
-    ``NotImplementedError`` until the collective atom is ported.
+    workers replay on ``emulator.device``; with ``mesh_spec`` set, every
+    agent's workers build their own mesh on it, so wire rows execute
+    remotely too.
     ``collect="totals"`` drops per-profile reports and returns
     index-order-folded aggregates only.
 
@@ -345,8 +343,6 @@ def run_remote_fleet(emulator: Emulator, profiles, *,
     report's ``dag`` dict carries critical-path accounting — same
     contract as ``run_process_fleet``, ``collect="totals"`` rejected.
     """
-    if mesh_spec is not None:
-        raise NotImplementedError(COLLECTIVE_TODO)
     is_dag = hasattr(profiles, "parents_map")
     if is_dag and collect == "totals":
         raise ValueError(

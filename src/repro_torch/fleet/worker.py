@@ -8,7 +8,8 @@ child's own torch import and CUDA context, which it pays once per
 *worker*, not once per bundle — the whole point of shipping detached
 schedules.  The worker runs on the device its spec names; asked for
 ``"cuda"`` where there is no card, it fails to initialize rather than
-replay on the CPU.
+replay on the CPU.  A spec with a ``MeshSpec`` gives the worker its own
+mesh, every shard on that device, so its collective legs execute.
 
 Protocol (pickled tuples over the pipe):
 
@@ -50,29 +51,40 @@ import traceback
 
 
 def _init(spec):
-    """Build this worker's emulator on the spec's device; returns
-    (emulator, info dict for the ready message)."""
+    """Build this worker's emulator (and mesh) on the spec's device;
+    returns (emulator, info dict for the ready message)."""
     import numpy as np
     import torch
 
     from repro_torch.core.atoms import PlanCache
     from repro_torch.core.schedule import FusedSegment
 
-    # a mesh is rejected before any spawn; only the device is the spec's
-    em = spec.emulator.build(device=spec.device)
+    mesh = None
+    if spec.mesh is not None:
+        mesh = spec.mesh.build(spec.device)
+    em = spec.emulator.build(mesh=mesh, device=spec.device)
     # one plan cache per worker process: barrier-step plans (storage,
-    # odd-sized legs) dedup across every bundle this worker will ever
-    # replay
+    # collectives, odd-sized legs) dedup across every bundle this worker
+    # will ever replay
     em.set_plan_cache(PlanCache())
     if spec.warmup:
         # run the most common fused segment shape (1-row table, both
         # carries) once so the first real bundle doesn't pay for it
         em._segments.run(FusedSegment(
             table=np.asarray([[1, 1, 0]], dtype=np.int32), rows=[]))
+        if em.collective is not None:
+            # the mesh-bound variant (all three carries) for fused wire
+            # rows, plus a tiny per-sample plan for barrier-fallback bundles
+            em._segments.run(FusedSegment(
+                table=np.asarray([[1, 1, 1]], dtype=np.int32), rows=[]))
+            em.collective.plan(float(1 << 10))()
     return em, {"pid": os.getpid(),
                 "device": (torch.cuda.get_device_name(em.device)
                            if em.device.type == "cuda" else "cpu"),
-                "devices": torch.cuda.device_count(), "mesh": None,
+                "devices": torch.cuda.device_count(),
+                "mesh": None if mesh is None else {
+                    "shape": list(spec.mesh.shape),
+                    "axes": list(spec.mesh.axes), "shared": mesh.shared},
                 "warm": bool(spec.warmup)}
 
 

@@ -52,9 +52,10 @@ SIGNATURES = {
     # device -> the L2 cache's bytes, or minus a CUDA error code
     "synapse_l2_cache_bytes": (ctypes.c_int64, [_I]),
     # table, n_rows, x, out, ring, n, slots, start, tile, total compute
-    # iterations, counts, device, stream
+    # iterations, collective carry, its shards, its shard's elements, its
+    # kind code, counts, device, stream
     "synapse_segment": (ctypes.c_int, [_P, _I, _P, _P, _P, _I, _I, _I, _I,
-                                       _I, _P, _I, _P]),
+                                       _I, _P, _I, _I, _I, _P, _I, _P]),
     # tile, device, info (int64[3]: grid, burn CTAs, active clusters)
     "synapse_segment_grid": (ctypes.c_int, [_I, _I, _P]),
     # q, k, v, out, BH, BKV, Sq, Sk, hd, dtype code, causal, window (-1 for
@@ -62,6 +63,9 @@ SIGNATURES = {
     "synapse_flash_attention": (ctypes.c_int, [_P, _P, _P, _P, _I, _I, _I,
                                                _I, _I, _I, _I, _I, _D, _D,
                                                _I, _P]),
+    # x, out, outer, n, post, blk, kind code, device, stream
+    "synapse_collective": (ctypes.c_int, [_P, _P, _I, _I, _I, _I, _I, _I,
+                                          _P]),
     # x, sink, n, reps, device, stream (a measuring probe, no port)
     "synapse_l2_read": (ctypes.c_int, [_P, _P, _I, _I, _I, _P]),
     "synapse_error_string": (ctypes.c_char_p, [ctypes.c_int]),

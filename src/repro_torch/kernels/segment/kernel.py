@@ -4,15 +4,19 @@
 device: per row, ``row[0]`` iterations of the compute atom's burn (the
 carry y starts at x and runs on across rows), then ``row[1]`` passes over
 the memory atom's ring (its pass counter runs on across rows and
-launches), with a grid barrier between rows so row r + 1 starts only when
-row r is done everywhere.  Tiles 64, 128 and 256 (``TILES``), the burn's
-cluster tiles.  The source says what bounds it and why it is shaped so.
+launches), then ``row[2]`` steps of the collective atom's loop body on the
+wire carry w (a mesh's n shards of ``COLL_BLOCK_ELEMS`` on this device,
+stepped in place), with a grid barrier between rows so row r + 1 starts
+only when row r is done everywhere.  Tiles 64, 128 and 256 (``TILES``),
+the burn's cluster tiles.  The source says what bounds it and why it is
+shaped so.
 
-The kernel counts, on the device, the burn iterations and ring passes that
-every CTA ran.  ``SegmentRun.settle()``, called after the caller's sync,
-reads them back, raises unless they are the table's sums, and adds them
-to ``iterations`` and ``passes``: the proof, in any process, that a
-segment burned and streamed what its report says.
+The kernel counts, on the device, the burn iterations, ring passes and
+collective steps that every CTA ran.  ``SegmentRun.settle()``, called
+after the caller's sync, reads them back, raises unless they are the
+table's sums, and adds them to ``iterations``, ``passes`` and ``steps``:
+the proof, in any process, that a segment burned, streamed and moved
+what its report says.
 
 ``run_segment`` launches the kernel for CUDA tensors and the plain version
 (``ref.run_segment``) for CPU tensors; anything else raises.
@@ -27,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.collective.kernel import KIND_CODES
 from repro_torch.kernels.memory_atom.kernel import Ring, check_ring
 from repro_torch.kernels.segment import ref
 
@@ -35,10 +40,13 @@ TILES = (64, 128, 256)
 
 #: kernel launches issued by ``run_segment`` (one a segment; CUDA only)
 launches = 0
-#: burn iterations and ring passes those launches ran, as the device
-#: counted them (added by ``SegmentRun.settle``)
+#: of those, the launches whose table has collective steps (the wire leg)
+wire_launches = 0
+#: burn iterations, ring passes and collective steps those launches ran,
+#: as the device counted them (added by ``SegmentRun.settle``)
 iterations = 0
 passes = 0
+steps = 0
 #: guards the counters: a thread fleet launches segments from several
 #: threads at once
 _count_lock = threading.Lock()
@@ -58,8 +66,9 @@ def grid_info(tile: int, device) -> dict:
     return {"grid": info[0], "burn_ctas": info[1], "max_clusters": info[2]}
 
 
-def check_input(table, x: Optional[torch.Tensor],
-                ring: Optional[Ring]) -> np.ndarray:
+def check_input(table, x: Optional[torch.Tensor], ring: Optional[Ring],
+                w: Optional[torch.Tensor] = None,
+                kind: str = "all-reduce") -> np.ndarray:
     """Validate a segment; returns its table as (n, 3) int32."""
     t = np.asarray(table)
     if t.dtype != np.int32 or t.ndim != 2 or t.shape[1] != 3 \
@@ -68,11 +77,19 @@ def check_input(table, x: Optional[torch.Tensor],
                          f"array, got {t.dtype} {t.shape}")
     if (t < 0).any():
         raise ValueError("a segment table holds no negative count")
-    if t[:, 2].any():
-        raise ValueError("the segment kernel runs no collective steps: "
-                         "row[2] must be 0")
-    ci, mi = int(t[:, 0].sum()), int(t[:, 1].sum())
+    ci, mi, wi = (int(t[:, i].sum()) for i in range(3))
     devices = set()
+    if wi:
+        if not isinstance(w, torch.Tensor) or w.dtype != torch.float32 \
+                or w.dim() != 2 or w.numel() == 0 \
+                or not w.is_contiguous() or kind not in KIND_CODES:
+            raise ValueError(
+                f"a segment with collective steps takes a contiguous "
+                f"float32 (n, block) wire carry and a kind in "
+                f"{tuple(KIND_CODES)}, got "
+                f"{None if w is None else (w.dtype, tuple(w.shape))}, "
+                f"{kind!r}")
+        devices.add(w.device)
     if ci:
         if not isinstance(x, torch.Tensor) or x.dtype != torch.float32 \
                 or x.dim() != 2 or x.shape[0] != x.shape[1] \
@@ -86,62 +103,77 @@ def check_input(table, x: Optional[torch.Tensor],
         check_ring(ring)
         devices.add(ring.device)
     if len(devices) > 1:
-        raise ValueError(f"the operand and the ring lie on {devices}")
+        raise ValueError(f"the segment's operands lie on {devices}")
     dev = next(iter(devices), None)
     if dev is not None and dev.type not in ("cpu", "cuda"):
         raise ValueError(f"a segment runs on cpu or cuda, not {dev}")
-    if dev is not None and dev.type == "cuda" and ci and x.data_ptr() % 16:
-        raise ValueError("a segment's operand must be 16-byte aligned")
+    if dev is not None and dev.type == "cuda" and (
+            (ci and x.data_ptr() % 16) or (wi and w.data_ptr() % 16)):
+        raise ValueError("a segment's operands must be 16-byte aligned")
     return t
 
 
 class SegmentRun:
     """A launched segment: ``y``, the burn's carry after the table's compute
-    iterations (None when no row burns), and ``slot``, the ring block its
-    last pass wrote (None when no row streams).  ``settle()`` after the
-    caller's sync checks the device counters (a no-op on the CPU, and for
-    ``SegmentRunner``'s ``"torch"`` loop, whose carries it also holds)."""
+    iterations (None when no row burns), ``slot``, the ring block its last
+    pass wrote (None when no row streams), and ``w``, the wire carry its
+    collective steps stepped (None when no row has any).  ``settle()``
+    after the caller's sync checks the device counters (a no-op on the
+    CPU, and for ``SegmentRunner``'s ``"torch"`` loop, whose carries it
+    also holds)."""
 
-    __slots__ = ("y", "slot", "_counts", "_want", "_settled")
+    __slots__ = ("y", "slot", "w", "_counts", "_want", "_settled")
 
-    def __init__(self, y, slot, counts=None, want=None):
-        self.y, self.slot = y, slot
+    def __init__(self, y, slot, w=None, counts=None, want=None):
+        self.y, self.slot, self.w = y, slot, w
         self._counts, self._want = counts, want
         self._settled = counts is None
 
+    def tensors(self) -> tuple:
+        """The carries, for ``repro_torch.device.sync``."""
+        return self.y, self.slot, self.w
+
     def settle(self) -> None:
-        global iterations, passes
+        global iterations, passes, steps
         if self._settled:
             return
         self._settled = True
-        (ci, burn_ctas), (mi, grid) = self._want
-        got_c, got_m = self._counts.tolist()
-        if got_c != ci * burn_ctas or got_m != mi * grid:
+        (ci, burn_ctas), (mi, grid), wi = self._want
+        got_c, got_m, got_w = self._counts.tolist()
+        if got_c != ci * burn_ctas or got_m != mi * grid \
+                or got_w != wi * grid:
             raise RuntimeError(
                 f"segment kernel: the device counted {got_c} burn "
-                f"iterations over {burn_ctas} CTAs and {got_m} ring passes "
-                f"over {grid}, want {ci} and {mi} each")
+                f"iterations over {burn_ctas} CTAs, {got_m} ring passes "
+                f"and {got_w} collective steps over {grid}, want {ci}, "
+                f"{mi} and {wi} each")
         with _count_lock:
             iterations += ci
             passes += mi
+            steps += wi
 
 
-def run_segment(table, x: Optional[torch.Tensor],
-                ring: Optional[Ring]) -> SegmentRun:
+def run_segment(table, x: Optional[torch.Tensor], ring: Optional[Ring],
+                w: Optional[torch.Tensor] = None,
+                kind: str = "all-reduce") -> SegmentRun:
     """Run a segment's table: burns on ``x`` [tile, tile] (may be None when
-    no row burns), passes over ``ring`` (may be None when no row
-    streams)."""
-    global launches
-    t = check_input(table, x, ring)
-    ci, mi = int(t[:, 0].sum()), int(t[:, 1].sum())
+    no row burns), passes over ``ring`` (may be None when no row streams),
+    collective steps of ``kind`` on the wire carry ``w`` [n, block], in
+    place (may be None when no row has any)."""
+    global launches, wire_launches
+    t = check_input(table, x, ring, w, kind)
+    ci, mi, wi = (int(t[:, i].sum()) for i in range(3))
     start = ring.claim(mi) if mi else 0
     slot = ring.slot(start + mi - 1) if mi else None
-    dev = x.device if ci else ring.device if mi else None
+    wire = w if wi else None
+    dev = x.device if ci else ring.device if mi else \
+        w.device if wi else None
     if dev is None:
         return SegmentRun(None, None)
     if dev.type == "cpu":
-        y = ref.run_segment(t, x, ring.data if mi else None, start=start)
-        return SegmentRun(y, slot)
+        y = ref.run_segment(t, x, ring.data if mi else None, start=start,
+                            w=wire, kind=kind)
+        return SegmentRun(y, slot, wire)
     lib = build.load()
     tile = x.shape[0] if ci else TILES[0]
     info = grid_info(tile, dev)
@@ -149,15 +181,18 @@ def run_segment(table, x: Optional[torch.Tensor],
     # the table crosses on the launch stream, from pinned memory
     table_dev = torch.from_numpy(np.ascontiguousarray(t)).pin_memory().to(
         dev, non_blocking=True)
-    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    counts = torch.zeros(3, dtype=torch.int64, device=dev)
     out = torch.empty_like(x) if ci else None
     err = lib.synapse_segment(
         table_dev.data_ptr(), t.shape[0], x.data_ptr() if ci else None,
         out.data_ptr() if ci else None, ring.data.data_ptr() if mi else None,
         ring.data.shape[1] if mi else 0, ring.slots if mi else 1, start,
-        tile, ci, counts.data_ptr(), dev.index, stream.cuda_stream)
+        tile, ci, w.data_ptr() if wi else None, w.shape[0] if wi else 0,
+        w.shape[1] if wi else 0, KIND_CODES[kind], counts.data_ptr(),
+        dev.index, stream.cuda_stream)
     build.check(lib, err, "segment")
     with _count_lock:
         launches += 1
-    return SegmentRun(out, slot, counts,
-                      ((ci, info["burn_ctas"]), (mi, info["grid"])))
+        wire_launches += bool(wi)
+    return SegmentRun(out, slot, wire, counts,
+                      ((ci, info["burn_ctas"]), (mi, info["grid"]), wi))

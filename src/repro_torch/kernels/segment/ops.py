@@ -7,9 +7,12 @@ import numpy as np
 from repro_torch.kernels.segment import kernel
 
 
-def segment(table, *, x=None, ring=None) -> kernel.SegmentRun:
+def segment(table, *, x=None, ring=None, w=None,
+            kind: str = "all-reduce") -> kernel.SegmentRun:
     """One launch for a segment's ``table`` (rows padded or not: rows with
-    no work are skipped on the device); ``x`` is the burn's operand and
-    ``ring`` the memory atom's ``Ring``, each needed only when some row
-    uses it."""
-    return kernel.run_segment(np.asarray(table, dtype=np.int32), x, ring)
+    no work are skipped on the device); ``x`` is the burn's operand,
+    ``ring`` the memory atom's ``Ring`` and ``w`` the collective atom's
+    wire carry (stepped by the loop body of ``kind``), each needed only
+    when some row uses it."""
+    return kernel.run_segment(np.asarray(table, dtype=np.int32), x, ring,
+                              w, kind)

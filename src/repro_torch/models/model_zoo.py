@@ -19,11 +19,11 @@ from repro_torch.models.params import count_params, init_params
 
 #: families of the JAX package's zoo that the port does not build yet
 FAMILY_TODO = {
-    "moe": "ROADMAP.md queue 2, item 7c (mixture of experts)",
-    "vlm": "ROADMAP.md queue 2, item 7d (vision-language frontend)",
-    "ssm": "ROADMAP.md queue 2, item 7e (state-space and hybrid blocks)",
-    "hybrid": "ROADMAP.md queue 2, item 7e (state-space and hybrid blocks)",
-    "encdec": "ROADMAP.md queue 2, item 7f (encoder-decoder)",
+    "moe": "ROADMAP.md queue 1, item 7c (mixture of experts)",
+    "vlm": "ROADMAP.md queue 1, item 7d (vision-language frontend)",
+    "ssm": "ROADMAP.md queue 1, item 7e (state-space and hybrid blocks)",
+    "hybrid": "ROADMAP.md queue 1, item 7e (state-space and hybrid blocks)",
+    "encdec": "ROADMAP.md queue 1, item 7f (encoder-decoder)",
 }
 
 
@@ -47,7 +47,7 @@ class Model:
 
 def build_model(cfg: ModelConfig, run: RunConfig) -> Model:
     if cfg.family != "dense":
-        where = FAMILY_TODO.get(cfg.family, "ROADMAP.md queue 2, item 7")
+        where = FAMILY_TODO.get(cfg.family, "ROADMAP.md queue 1, item 7")
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: {where}")
     pdefs = tr.def_lm(cfg)

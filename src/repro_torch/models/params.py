@@ -5,7 +5,7 @@ axes, initializer), as in the JAX package.  From that single source the port
 derives materialized parameters (``init_params``) and the parameter count;
 ``from_numpy`` carries the JAX package's parameters across.  The logical
 axes are kept for the sharding slice (``spec_tree`` and ``abstract_params``
-are not ported yet: ROADMAP.md queue 2, item 7h).
+are not ported yet: ROADMAP.md queue 1, item 7h).
 """
 from __future__ import annotations
 

@@ -24,7 +24,7 @@ from repro_torch.models.layers import (AttnRun, attention, def_attention,
 from repro_torch.models.params import PDef, map_tensors, stack_pdefs
 
 MOE_TODO = ("mixture-of-experts blocks (models/moe.py) are not ported yet: "
-            "ROADMAP.md queue 2, item 7c")
+            "ROADMAP.md queue 1, item 7c")
 
 
 # ---------------------------------------------------------------------------

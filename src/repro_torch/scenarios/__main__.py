@@ -18,8 +18,9 @@ one scenario through generate -> predict -> emulate (-> store with
 selecting the in-process thread pool, the process-level fleet executor
 (``repro_torch.fleet``), or a remote fleet of host agents over TCP
 (``--host`` dials listening ``python -m repro_torch.fleet.agent``
-processes; ``--listen`` + ``--agents`` accepts dial-in ones).  ``--mesh N``
-exits naming the ROADMAP item that ports the collective atom.
+processes; ``--listen`` + ``--agents`` accepts dial-in ones) and ``--mesh N``
+giving each worker process an N-shard mesh on its device so collective
+legs execute.
 ``--from-store`` turns ``--store`` into a profile *source*: matching
 stored profiles are streamed into the fleet alongside (or instead of)
 generated jobs.  ``serve`` starts the live traffic emulation service
@@ -44,7 +45,6 @@ import json
 import sys
 from typing import Dict, List, Optional, Tuple
 
-from repro_torch.core.atoms import COLLECTIVE_TODO
 from repro_torch.device import cli_device
 
 PROG = "python -m repro_torch.scenarios"
@@ -133,8 +133,12 @@ def _cmd_run(args) -> int:
 def _cmd_fleet(args) -> int:
     from repro_torch.fleet import FleetConfig
     from repro_torch.scenarios import run_fleet
+    mesh_spec = None
+    if args.mesh:
+        from repro_torch.fleet import MeshSpec
+        mesh_spec = MeshSpec(shape=(args.mesh,), axes=("model",))
     config = FleetConfig(executor=args.executor, max_workers=args.workers,
-                         hosts=args.host or None,
+                         mesh_spec=mesh_spec, hosts=args.host or None,
                          listen=args.listen, agents=args.agents,
                          timeout=args.timeout, window=args.window,
                          autoscale=args.autoscale is not None,
@@ -251,8 +255,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                     default="thread")
     fl.add_argument("--workers", type=int, default=4)
     fl.add_argument("--mesh", type=int, default=0, metavar="N",
-                    help="give each process/remote worker an N-device mesh "
-                         "(not ported yet: exits naming its ROADMAP item)")
+                    help="give each process/remote worker an N-shard mesh "
+                         "on its device (not available on the thread "
+                         "executor)")
     fl.add_argument("--per-sample", action="store_true",
                     help="force the legacy per-sample replay path "
                          "(thread executor only)")
@@ -338,8 +343,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         if args.mesh and args.executor == "thread":
             ap.error("--mesh requires --executor process or remote "
                      "(threads cannot own per-worker meshes)")
-        if args.mesh:
-            ap.error(COLLECTIVE_TODO)
         if args.per_sample and args.executor != "thread":
             ap.error(f"--per-sample is incompatible with --executor "
                      f"{args.executor}: process/remote fleets ship "

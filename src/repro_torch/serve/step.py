@@ -1,7 +1,7 @@
 """Serving steps: prefill (builds the cache, returns first sampled token) and
 decode (one token for the whole batch against the cache).  Greedy argmax
 sampling, as in the JAX package; its sharding rules wait for the sharding
-slice (ROADMAP.md queue 2, item 7h).
+slice (ROADMAP.md queue 1, item 7h).
 """
 from __future__ import annotations
 

@@ -99,13 +99,24 @@ def test_bad_arguments_exit_like_reference(argv, capsys):
             capsys.readouterr().err
 
 
-def test_mesh_exits_naming_the_roadmap_item(capsys):
+def test_mesh_exits_naming_the_roadmap_item(capsys, monkeypatch):
+    """``--mesh N`` runs on the process executor, as the JAX CLI's does:
+    each worker builds an N-shard mesh on its device and executes the
+    profile's wire legs inside its segments; on threads it is refused."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    out = json.loads(_run("torch", [
+        "fleet", "training_scan:n_steps=2,ckpt_every=0,ici_per_step=4e6",
+        "--mesh", "2", "--executor", "process", "--workers", "1", "--json",
+        "--device", "cpu"], capsys))
+    (rep,) = out["reports"]
+    assert rep["mode"] == "fused" and rep["ici_bytes"] == 8e6
+    assert rep["n_collective_dispatches"] == 1
+    assert rep["emulated_ici_bytes"] > 0
     with pytest.raises(SystemExit) as e:
-        t_main(["fleet", "fanout_straggler", "--mesh", "2", "--executor",
-                "process", "--device", "cpu"])
+        t_main(["fleet", "fanout_straggler", "--mesh", "2", "--device",
+                "cpu"])
     assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP.md" in err and "item 3" in err
+    assert "--mesh requires --executor process" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("argv", [

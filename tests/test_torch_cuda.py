@@ -16,11 +16,13 @@ from repro_torch.configs.run import RunConfig
 from repro_torch.core import Emulator, HostCalibration, SynapseProfile
 from repro_torch.core import ResourceVector, Sample
 from repro_torch.fleet import FleetConfig
+from repro_torch.kernels.collective import kernel as wk, ref as wref
 from repro_torch.kernels.compute_atom import kernel as ck, ref as cref
 from repro_torch.kernels.flash_attention import kernel as fk, ref as fref
 from repro_torch.kernels.memory_atom import kernel as mk, ops as mops
 from repro_torch.kernels.memory_atom import ref as mref
 from repro_torch.kernels.segment import kernel as sk, ref as sref
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.model_zoo import build_model
 from repro_torch.scenarios import generate
 from repro_torch.serve.engine import Engine, Request
@@ -124,14 +126,18 @@ def test_segment_matches_plain(dev, tile, table):
 
 
 def test_segment_counters_exact_under_threads(dev):
-    """2 threads launch 40 segments each on one runner (one ring): the
-    device counts every iteration and pass, the launches serialize on the
-    shared stream, and nothing deadlocks."""
+    """2 threads launch 40 segments each on one runner (one ring, one wire
+    carry): the device counts every iteration, pass and collective step,
+    the launches serialize on the shared stream, and nothing deadlocks."""
+    from repro_torch.core.atoms import CollectiveAtom
     from repro_torch.core.schedule import FusedSegment, SegmentRunner
     runner = SegmentRunner(tile=256, block_bytes=1 << 20, device=dev,
-                           backend="cuda")
-    seg = FusedSegment(table=[[3, 2, 0], [0, 1, 0], [4, 0, 0]])
-    before = (sk.launches, sk.iterations, sk.passes)
+                           backend="cuda", collective=CollectiveAtom(
+                               make_mesh((2,), ("model",), dev),
+                               backend="cuda"))
+    seg = FusedSegment(table=[[3, 2, 1], [0, 1, 0], [4, 0, 2]])
+    before = (sk.launches, sk.iterations, sk.passes, sk.steps,
+              sk.wire_launches)
     start, errors = threading.Barrier(2), []
 
     def run():
@@ -149,8 +155,11 @@ def test_segment_counters_exact_under_threads(dev):
         th.join(timeout=120)
     assert not errors and not any(th.is_alive() for th in threads)
     assert (sk.launches - before[0], sk.iterations - before[1],
-            sk.passes - before[2]) == (80, 80 * 7, 80 * 3)
+            sk.passes - before[2], sk.steps - before[3],
+            sk.wire_launches - before[4]) == (80, 80 * 7, 80 * 3, 80 * 3, 80)
     assert runner._ring().passes == 80 * 3
+    assert torch.equal(runner._coll_operand(),
+                       torch.ones_like(runner._coll_operand()))
 
 
 def test_segment_and_ring_wrappers_raise_and_never_fall_back(dev):
@@ -173,6 +182,87 @@ def test_segment_and_ring_wrappers_raise_and_never_fall_back(dev):
         SegmentRunner(tile=320, block_bytes=1 << 18, device=dev,
                       backend="cuda").run(FusedSegment(table=[[1, 0, 0]]))
     assert (sk.launches, mk.ring_launches) == before
+
+
+# (shards shape, collective dim): a 2-shard mesh, a (2, 2) mesh along
+# each axis, and a 4-shard mesh
+COLL_SHAPES = [((2, 4096), 0), ((2, 2, 1024), 0), ((2, 2, 1024), 1),
+               ((4, 333), 0)]
+
+
+@pytest.mark.parametrize("kind", wref.KINDS)
+@pytest.mark.parametrize("shape,dim", COLL_SHAPES)
+def test_collective_matches_plain(dev, kind, shape, dim):
+    """The per-sample collective against the plain version within 1e-6
+    (float32; the sum over n shards in one order on both sides), one
+    launch."""
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        shape).astype(np.float32)).to(dev)
+    before = wk.launches
+    got = wk.collective(x, dim=dim, kind=kind)
+    want = wref.collective(x, dim=dim, kind=kind)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    assert wk.launches - before == 1
+
+
+@pytest.mark.parametrize("kind", wref.KINDS)
+@pytest.mark.parametrize("tile", sk.TILES)
+@pytest.mark.parametrize("n", [2, 4])
+def test_segment_wire_leg_matches_plain(dev, n, tile, kind):
+    """The segment kernel's collective steps on an (n, 32768) carry (the
+    axis of a 2-shard or a (2, 2) mesh, and a 4-shard mesh), after its
+    burns and passes, against the plain walk within 1e-6; the device
+    counts every CTA's steps."""
+    rng = np.random.default_rng(7)
+    t = np.asarray([[2, 1, 3], [0, 0, 0], [0, 0, 5], [1, 2, 0]], np.int32)
+    x = torch.from_numpy((rng.standard_normal((tile, tile)) * 0.1).astype(
+        np.float32)).to(dev)
+    ring = mk.Ring(1 << 18, dev, slots=3)
+    w = torch.from_numpy(rng.standard_normal((n, 1 << 15)).astype(
+        np.float32)).to(dev)
+    want_w, want_ring = w.clone(), ring.data.clone()
+    want_y = sref.run_segment(t, x, want_ring, w=want_w, kind=kind)
+    before = (sk.launches, sk.wire_launches, sk.steps)
+    run = sk.run_segment(t, x, ring, w, kind)
+    torch.cuda.synchronize()
+    run.settle()
+    assert (sk.launches - before[0], sk.wire_launches - before[1],
+            sk.steps - before[2]) == (1, 1, 8)
+    torch.testing.assert_close(run.w, want_w, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(run.y, want_y, atol=1e-5, rtol=1e-5)
+    assert torch.equal(ring.data, want_ring)
+
+
+def test_mesh_bound_replay_on_the_card(dev):
+    """A 2-shard mesh on the card: fused replay launches one segment with
+    its wire rows, per sample one collective a wire leg; both consume the
+    profile's totals and emulate the same quantized wire bytes."""
+    em = Emulator(calib=HostCalibration(1e9, 1e9, 1e8, 1e8), backend="cuda",
+                  compute_tile=64, mem_block=1 << 18,
+                  mesh=make_mesh((2,), ("model",), dev), device=dev)
+    rvs = [ResourceVector(flops=2.0 * 64 ** 3 * (1 + i % 2),
+                          ici_bytes={"all-reduce": 2e6 * (1 + i % 2)})
+           for i in range(6)]
+    prof = SynapseProfile(command="wire", samples=[
+        Sample(index=i, resources=r) for i, r in enumerate(rvs)])
+    before = (sk.launches, sk.steps, wk.launches)
+    fused = em.emulate(prof, fused=True)
+    torch.cuda.synchronize()
+    table = em.compile(prof).segments[0].table
+    assert (sk.launches - before[0], sk.steps - before[1],
+            wk.launches - before[2]) == (1, int(table[:, 2].sum()), 0)
+    before = wk.launches
+    per_sample = em.emulate(prof, fused=False)
+    assert wk.launches - before == 6
+    assert fused.consumed == per_sample.consumed == prof.totals
+    assert fused.n_collective_dispatches == per_sample.n_collective_dispatches
+    assert abs(fused.emulated_ici_bytes - prof.totals.ici_total) \
+        < 0.05 * prof.totals.ici_total
+    with pytest.raises(ValueError, match="emulator's device"):
+        Emulator(calib=HostCalibration(1e9, 1e9, 1e8, 1e8), device=dev,
+                 mesh=make_mesh((2,), ("model",), "cpu"))
 
 
 def test_ring_pass_matches_plain(dev):

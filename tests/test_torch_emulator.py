@@ -224,10 +224,16 @@ def test_replayed_reference_schedule_matches(tmp_path):
 
 
 def test_mesh_and_mesh_bound_schedules_raise(tmp_path):
+    """What must still raise now that meshes run: a mesh whose shards lie
+    on another device than its emulator's, a meshless replay or launch of
+    a mesh-bound schedule, and a schedule quantized for another mesh; the
+    same schedule replays on an emulator with the mesh it was quantized
+    for."""
     from collections import namedtuple
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.Emulator(calib=T.HostCalibration(1, 1, 1, 1), mesh=object(),
-                   device="cpu")
+    from repro_torch.launch.mesh import make_mesh
+    with pytest.raises(ValueError, match="emulator's device"):
+        T.Emulator(calib=T.HostCalibration(1, 1, 1, 1),
+                   mesh=make_mesh((2,), ("x",), "meta"), device="cpu")
     em = _em(T, tmp_path)
     ms = namedtuple("MeshSpec", "shape axes")((2,), ("x",))
     sched = em.compile(_profile(T, PROFILES["wire_folded"]), mesh_spec=ms)
@@ -236,6 +242,13 @@ def test_mesh_and_mesh_bound_schedules_raise(tmp_path):
         em.replay(sched)
     with pytest.raises(RuntimeError, match="mesh-bound"):
         em._segments.launch(sched.segments[0])
+    skewed = namedtuple("MeshSpec", "shape axes")((4,), ("x",))
+    meshed = _em(T, tmp_path, mesh=make_mesh((2,), ("x",), "cpu"))
+    with pytest.raises(RuntimeError, match="quantized for"):
+        meshed.replay(meshed.compile(_profile(T, PROFILES["wire_folded"]),
+                                     mesh_spec=skewed))
+    rep = meshed.replay(sched)
+    assert rep.n_collective_dispatches > 0 and rep.emulated_ici_bytes > 0
 
 
 def test_spec_rebuilds_an_equivalent_emulator(tmp_path):

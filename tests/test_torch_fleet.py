@@ -432,17 +432,9 @@ def test_unported_fleet_paths_raise_not_implemented():
     with TF.FleetConfig.remote(listen="127.0.0.1:0").build(spec) as fleet:
         assert isinstance(fleet, TF.RemoteFleet)
         assert fleet.spec.device == "cpu" and fleet.bound_addr[1] > 0
-    mesh = TF.MeshSpec(shape=(2,), axes=("model",))
-    assert mesh.device_count == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        em.emulate_many(jobs, config=TF.FleetConfig.process(mesh=mesh))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        mesh.build()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TF.ProcessFleet(1, TF.WorkerSpec(emulator=em.spec(), mesh=mesh,
-                                         device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TF.run_process_fleet(em, jobs, mesh_spec=mesh)
+    # meshes are ported: test_mesh_spec_builds_a_shared_mesh_for_workers
+    # below, and test_torch_collectives.py replays mesh-bound bundles on
+    # process and remote fleets
     # the kernel backend replays per sample at a tile the segment kernel
     # does not take, and ships no compiled tables there: processes refuse it
     off_tile = T.Emulator(calib=T.HostCalibration(1e9, 1e9, 1e8, 1e8),
@@ -451,6 +443,22 @@ def test_unported_fleet_paths_raise_not_implemented():
     with pytest.raises(ValueError, match="fused"):
         off_tile.emulate_many(jobs, config=TF.FleetConfig.process())
 
+
+
+def test_mesh_spec_builds_a_shared_mesh_for_workers():
+    """A MeshSpec builds a live mesh on the device it is given, every shard
+    there, and a process config ships it to its workers, whose emulators
+    quantize wire bytes for it."""
+    mesh = TF.MeshSpec(shape=(2,), axes=("model",))
+    assert mesh.device_count == 2
+    live = mesh.build("cpu")
+    assert live.shared and live.shape == {"model": 2}
+    assert list(live.devices.flat) == [torch.device("cpu")] * 2
+    wspec = TF.FleetConfig.process(mesh=mesh).worker_spec(_em("torch").spec(),
+                                                          device="cpu")
+    assert wspec.mesh == mesh and wspec.device == "cpu"
+    twin = wspec.emulator.build(mesh=live, device="cpu")
+    assert twin.collective.quant() == T.CollectiveQuant(n=2)
 
 def test_fleet_report_json_crosses_both_ways():
     reps = {}

@@ -41,6 +41,13 @@ SLICE = [
     "repro_torch.kernels.memory_atom.kernel",
     "repro_torch.kernels.memory_atom.ops",
     "repro_torch.kernels.memory_atom.ref",
+    "repro_torch.kernels.collective",
+    "repro_torch.kernels.collective.kernel",
+    "repro_torch.kernels.collective.ops",
+    "repro_torch.kernels.collective.ref",
+    "repro_torch.kernels.segment", "repro_torch.kernels.segment.kernel",
+    "repro_torch.kernels.segment.ops", "repro_torch.kernels.segment.ref",
+    "repro_torch.launch", "repro_torch.launch.mesh",
     "repro_torch.scenarios", "repro_torch.scenarios.base",
     "repro_torch.scenarios.serving", "repro_torch.scenarios.algebra",
     "repro_torch.scenarios.training", "repro_torch.scenarios.fanout",
@@ -104,7 +111,8 @@ def test_port_sources_name_no_jax_or_repro():
     files = list(_port_files())
     assert len(files) > 20
     # the scan reaches every subpackage, this slice's included
-    for sub in ("fleet", "obs", "service", "scenarios", "transport"):
+    for sub in ("fleet", "obs", "service", "scenarios", "transport",
+                "launch", "collective"):
         assert any(os.sep + sub + os.sep in f for f in files), sub
     for path in files:
         with open(path) as f:
@@ -119,6 +127,7 @@ def test_default_device_raises_without_cuda():
     from repro_torch.configs.run import SERVE_RUN
     from repro_torch.core import (Emulator, HostCalibration, calibrate)
     from repro_torch.core.atoms import ComputeAtom, MemoryAtom
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.model_zoo import build_model
     from repro_torch.models.params import from_numpy
     from repro_torch.serve.engine import Engine
@@ -133,6 +142,7 @@ def test_default_device_raises_without_cuda():
                  lambda: Emulator(calib=cal, backend="cuda"),
                  lambda: ComputeAtom(cal),
                  lambda: MemoryAtom(cal),
+                 lambda: make_mesh((2,), ("model",)),
                  lambda: calibrate()):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()

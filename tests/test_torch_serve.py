@@ -140,7 +140,7 @@ def test_init_params_follows_the_references_initializers():
 def test_build_model_names_the_roadmap_item_for_other_families(family, arch):
     cfg = get_config(arch)
     assert cfg.family == family
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         build_model(cfg, SERVE_RUN)
 
 

@@ -222,15 +222,13 @@ def test_remote_guard_rails_equal_reference():
     with TF.RemoteFleet(specs["torch"], listen="127.0.0.1:0") as f:
         host, port = f.bound_addr
         assert host == "127.0.0.1" and port > 0
-    # meshes need the collective atom in the port
+    # a mesh travels in the spec to the agents' workers, as in the JAX
+    # package (a worker builds it on its own device)
     mesh = TF.MeshSpec(shape=(2,), axes=("model",))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TF.RemoteFleet(TF.WorkerSpec(emulator=specs["torch"].emulator,
-                                     mesh=mesh, device="cpu"),
-                       listen="127.0.0.1:0")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TF.run_remote_fleet(_em("torch"), [], hosts=["h:1"],
-                            mesh_spec=mesh)
+    with TF.RemoteFleet(TF.WorkerSpec(emulator=specs["torch"].emulator,
+                                      mesh=mesh, device="cpu"),
+                        listen="127.0.0.1:0") as f:
+        assert f.spec.mesh == mesh and f.bound_addr[1] > 0
     # the kernel backend at a tile the segment kernel does not take ships
     # no compiled tables: remote refuses it too
     off_tile = T.Emulator(calib=T.HostCalibration(1e9, 1e9, 1e8, 1e8),
