@@ -34,9 +34,15 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
              card (printed as ``shared``): ``csrc/collective.cu`` (the
              per-sample collective) and the segment kernel's wire leg
              against their plain versions for each kind on a 2-shard
-             mesh, a 1-shard all-reduce folded to nothing, the wire leg's
-             device time a step beside the L2 bound, a library call and
-             NVLink's time for the same wire bytes; then a
+             mesh and ``collective.cu`` at five shape cases (16-byte
+             vectors, a ragged inner, 3 shards, an outer axis, an
+             all-gather block no multiple of 4), a 1-shard all-reduce
+             folded to nothing, the segment kernel's registers (fails on a
+             spill), the round trip of one wire step through L2, the peer
+             CTA's shared memory and the CTA's own (``csrc/l2_probe.cu``),
+             the wire leg's device time a step at 2 and 4 shards beside
+             the L2 bound, a library call and NVLink's time for the same
+             wire bytes; then a
              Qwen2-7B ``training_scan`` with a 2-way data-parallel step's
              wire bytes replayed fused (one segment launch, the device's
              counts of all three legs the table's, consumed equal to
@@ -201,6 +207,13 @@ COLLECTIVE_CUTS = {"tokens_per_step": 16, "n_steps": 2, "ckpt_every": 0,
 # take between two cards, printed beside the one card's emulated time
 NVLINK_BPS = 450e9
 COLL_TOL = 1e-6            # float32 collectives: rtol and atol
+# collective.cu's shape cases, (shards shape, dim): 16-byte vectors with
+# several a thread, a ragged inner (one float a column), 3 shards, an
+# outer axis with a middle one, and an all-gather block not a multiple of 4
+COLL_CASES = [((2, 1 << 20), 0), ((4, 333), 0), ((3, 4096), 0),
+              ((2, 3, 2, 512), 1), ((2, 2, 3, 6), 2)]
+# the wire leg's carries timed a step: the 2-shard mesh's and a 4-shard one
+WIRE_SHARDS = (2, 4)
 # the serving shape: Qwen2-7B's prefill of 4 prompts of 2048 tokens
 SERVE_B, SERVE_S, SERVE_HQ, SERVE_HK, SERVE_HD = 4, 2048, 28, 4, 128
 SERVE_PROMPTS = (2048, 1536, 1024, 512)
@@ -285,6 +298,46 @@ def l2_read_rates(torch) -> dict:
 
         rates[f"{mib}MiB"] = n * 4 * reps / (event_ms(probe, 5) * 1e-3)
     return rates
+
+
+def wire_round_trips(torch, grid: int, steps: int = 20000) -> dict:
+    """The wire leg's latency floor: ``csrc/l2_probe.cu``'s chain of
+    all-reduce steps on a 2-shard carry, one thread a column, each step
+    reading what the last wrote, with the column in device memory (L2),
+    in the peer CTA's shared memory (the segment's medium) and, for what
+    of a step is not the trip, in the CTA's own, on one cluster of 2 CTAs
+    and on ``grid`` CTAs (the segment's).  Cycles (thread 0's SM clock) and
+    microseconds (CUDA events around the launch) a step."""
+    from repro_torch.kernels import build
+    lib = build.load()
+    cycles = torch.zeros(1, dtype=torch.int64, device="cuda")
+    out = {}
+    for medium, name in ((0, "l2"), (1, "peer_smem"), (2, "own_smem")):
+        for ctas in (2, grid):
+            carry = torch.ones((2, ctas * 256), device="cuda")
+
+            def probe():
+                build.check(lib, lib.synapse_wire_probe(
+                    carry.data_ptr(), 2, ctas, 0, steps, medium,
+                    cycles.data_ptr(), torch.cuda.current_device(),
+                    torch.cuda.current_stream().cuda_stream), "wire_probe")
+
+            us = event_ms(probe, 3) * 1e3 / steps
+            if not torch.equal(carry, torch.ones_like(carry)):
+                fail(f"wire probe ({name}, {ctas} CTAs): the all-reduce of "
+                     "ones did not stay ones")
+            out[f"{name}_{ctas}ctas"] = {
+                "cycles": cycles.item() / steps, "us": us}
+    return out
+
+
+def ptxas_numbers(lines) -> dict:
+    """Registers and spill bytes from a kernel's ptxas lines."""
+    text = " ".join(lines)
+    regs = re.search(r"Used (\d+) registers", text)
+    spills = [int(v) for v in re.findall(r"(\d+) bytes spill", text)]
+    return {"registers": int(regs.group(1)) if regs else None,
+            "spill_bytes": sum(spills)}
 
 
 def device_time(torch, fn):
@@ -1091,7 +1144,9 @@ def phase_collective(torch, np, calib, build_info):
     """The collective atom on the card, its mesh's shards all on cuda:0:
     ``csrc/collective.cu`` (the per-sample collective) and the segment
     kernel's wire leg against their plain versions for each kind on a
-    2-shard mesh, the 1-shard fold; the wire leg's device time a step;
+    2-shard mesh, ``collective.cu``'s shape cases, the 1-shard fold, the
+    segment kernel's registers and spills; the wire leg's latency floor
+    (``wire_round_trips``) and its device time a step at 2 and 4 shards;
     then the path: a Qwen2-7B-sized ``training_scan`` with a 2-way
     data-parallel step's wire bytes replayed fused (one segment launch,
     the device's counts of all three legs the table's) and per sample (one
@@ -1155,6 +1210,28 @@ def phase_collective(torch, np, calib, build_info):
                  f"{COLL_TOL}")
         coll_err = max(coll_err, errs["collective"])
         wire_err = max(wire_err, errs["segment_wire"])
+    for shape, dim in COLL_CASES:
+        x = torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev)
+        for kind in wref.KINDS:
+            got = wk.collective(x, dim=dim, kind=kind)
+            want = wref.collective(x, dim=dim, kind=kind)
+            ok = got.shape == want.shape and torch.allclose(
+                got, want, rtol=COLL_TOL, atol=COLL_TOL)
+            err = (got - want).abs().max().item() if ok else float("inf")
+            if not ok:
+                fail(f"collective {kind} at {shape} along {dim}: max abs "
+                     f"err {err} beyond {COLL_TOL}")
+            coll_err = max(coll_err, err)
+    emit("collective", step="shape_cases", cases=COLL_CASES,
+         max_abs_err=coll_err, tolerance=COLL_TOL, ok=True)
+    seg_ptxas = {k: ptxas_numbers(v["ptxas"]) for k, v in build_info.items()
+                 if "segment_kernel" in k}
+    emit("collective", step="segment_registers", ptxas=seg_ptxas)
+    if len(seg_ptxas) != len(sk.TILES) or any(
+            p["spill_bytes"] or not p["registers"] or p["registers"] > 255
+            for p in seg_ptxas.values()):
+        fail(f"segment kernel: registers or spills {seg_ptxas}")
 
     # a 1-shard axis all-reduces nothing: no steps, no plan, no launch
     one = make_mesh((1,), ("data",), dev)
@@ -1172,35 +1249,52 @@ def phase_collective(torch, np, calib, build_info):
         fail("collective: a 1-shard all-reduce did not fold to nothing")
     del em1
 
-    # 2. device times a step on the fused carry (2 x 128 KiB, in L2): the
-    # segment's wire leg alone, the plain version and the library call;
-    # the bound reads and writes the carry once a step at L2's read rate
-    # (csrc/l2_probe.cu, this run)
-    w = torch.ones((2, COLL_BLOCK_ELEMS), dtype=torch.float32, device=dev)
-    step_bytes = 2 * w.numel() * 4
+    # 2. the wire leg's latency floor: one step's dependent round trip
+    # through L2 and through the peer CTA's shared memory
+    # (csrc/l2_probe.cu); then device times a step on the fused carry (n x
+    # 128 KiB, n = 2 and 4): the segment's wire leg alone (its carry in
+    # the CTAs' shared memory), the plain version and the library call;
+    # the byte bound reads and writes the carry once a step at L2's read
+    # rate (csrc/l2_probe.cu, this run), kept for comparison across PRs
+    grid = sk.grid_info(sk.TILES[0], dev)["grid"]
+    floor = wire_round_trips(torch, grid)
+    emit("collective", step="wire_round_trips", grid=grid, steps=20000,
+         kind="all-reduce", shards=2, **floor)
     l2 = l2_read_rates(torch)
     l2_bps = max(l2.values())
-    plain_ms = graph_ms(lambda: chain(lambda y: wref.loop_step(
-        y, dim=0, kind="all-reduce"), w, 100), 100)
-    library_ms = graph_ms(lambda: repeat(lambda: w.copy_(
-        w.mean(0, keepdim=True).expand_as(w)), 100), 100)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     leg = np.asarray([[0, 0, 20000]], np.int32)
-    times = []
-    for _ in range(3):
-        start.record()
-        run = sk.run_segment(leg, None, None, w, "all-reduce")
-        end.record()
-        end.synchronize()
-        run.settle()
-        times.append(start.elapsed_time(end) / int(leg[0, 2]))
-    wire_ms = min(times)
-    bound_ms = step_bytes / l2_bps * 1e3
-    emit("collective", step="step_times", l2_read_bytes_per_s=l2,
-         plain_ms=plain_ms, library_ms=library_ms,
-         segment_wire_ms=wire_ms, segment_wire_ms_each=times,
-         bound_ms=bound_ms, bytes_per_step=step_bytes)
+    wire = {}
+    for n in WIRE_SHARDS:
+        w = torch.ones((n, COLL_BLOCK_ELEMS), dtype=torch.float32,
+                       device=dev)
+        plain_ms = graph_ms(lambda: chain(lambda y: wref.loop_step(
+            y, dim=0, kind="all-reduce"), w, 100), 100)
+        library_ms = graph_ms(lambda: repeat(lambda: w.copy_(
+            w.mean(0, keepdim=True).expand_as(w)), 100), 100)
+        times = []
+        for _ in range(3):
+            start.record()
+            run = sk.run_segment(leg, None, None, w, "all-reduce")
+            end.record()
+            end.synchronize()
+            run.settle()
+            times.append(start.elapsed_time(end) / int(leg[0, 2]))
+        if not torch.equal(w, torch.ones_like(w)):
+            fail(f"segment wire leg, {n} shards: the all-reduce of ones "
+                 "did not stay ones")
+        step_bytes = 2 * w.numel() * 4
+        wire[n] = {"ms": min(times), "ms_each": times, "plain_ms": plain_ms,
+                   "library_ms": library_ms, "bytes_per_step": step_bytes,
+                   "bound_ms": step_bytes / l2_bps * 1e3,
+                   "smem_bytes": sk.grid_info(
+                       sk.TILES[0], dev, tuple(w.shape))["smem_bytes"]}
+        emit("collective", step="step_times", shards=n,
+             l2_read_bytes_per_s=l2, **wire[n])
+    wire_ms = wire[2]["ms"]
+    plain_ms, library_ms = wire[2]["plain_ms"], wire[2]["library_ms"]
+    bound_ms = wire[2]["bound_ms"]
 
     # 3. the path: fused at full width and amounts, then per sample at the
     # cut's wire bytes (and fused at the cut, like with like)
@@ -1366,6 +1460,9 @@ def phase_collective(torch, np, calib, build_info):
             "shape": [2, COLL_BLOCK_ELEMS],
             "ptxas": resources("segment_kernel"),
             "nvlink_ms_a_step": quant.wire_bytes_per_iter / NVLINK_BPS * 1e3,
+            "latency_floor": floor,
+            "latency_floor_ms": floor[f"peer_smem_{grid}ctas"]["us"] / 1e3,
+            "by_shards": wire,
             "source": "src/repro_torch/csrc/segment.cu",
             "device_code": "src/repro_torch/csrc/coll.cuh",
             "replaces": "src/repro/core/schedule.py:357 (the collective "
@@ -1375,7 +1472,8 @@ def phase_collective(torch, np, calib, build_info):
             "steps": fused_got["segment_steps"], "max_abs_err": wire_err,
             "ms": wire_ms,
             "unit": "one all-reduce step of the segment kernel's wire leg "
-                    "on its 2 x 128 KiB carry, in a 20000-step launch",
+                    "on its 2 x 128 KiB carry (kept in the CTAs' shared "
+                    "memory), in a 20000-step launch",
             "timing": "device time: CUDA events around one launch, the "
                       "best of 3; plain and library: CUDA graph of 100 "
                       "steps",

@@ -20,9 +20,14 @@
 //
 // Bound.  The burn's float32 FMA rate (2 T^3 flops an iteration at 67
 // TFLOP/s), the ring's device-memory rate (2 * block bytes a pass at
-// 3.35 TB/s) and the wire leg's L2 rate (its carry, n x 128 KiB, stays in
-// L2: reading and writing it once a step), in sequence within a row as in
-// the scan.
+// 3.35 TB/s) and the wire leg's latency: a step reads what the thread's
+// last step wrote, so steps x one round trip to the carry's medium
+// (coll.cuh; the byte bound, reading and writing n x 128 KiB once a step
+// at L2's read rate, is 4x below it).  That trip, through the peer CTA's
+// shared memory, is the leg's latency floor: 0.27 us a 2-shard
+// all-reduce step on an H100 SXM at 700 W (0.39 us through L2), against
+// 0.295 us a step in this kernel.  In sequence within a row as in the
+// scan.
 //
 // Design.
 //   * The compute leg is the burn's cluster design (burn.cuh, shared with
@@ -37,9 +42,21 @@
 //     another CTA's pass p and a row needs no barrier inside it.
 //   * The wire leg is the collective loop body (coll.cuh): each thread of
 //     the grid owns whole columns of the carry, all n shards of them, so a
-//     step needs no barrier either.
+//     step needs no barrier either.  For the length of the launch the
+//     columns a thread owns live in the shared memory of the OTHER CTA of
+//     its cluster (the carry's share, n x 1 KB a CTA at grid 132, past the
+//     burn's), so every load and store of a step crosses the SM-to-SM
+//     network instead of going to L2 and back: the round trip that bounds
+//     a step is the shorter one (csrc/l2_probe.cu measures both).  After
+//     the kernel's first cluster barrier, which every CTA then runs, each
+//     thread copies its columns in from the global carry; after the last
+//     row it copies them back out, and a last cluster barrier keeps every
+//     CTA's shared memory alive until its peer is done with it.  Only a
+//     launch with a carry takes the share (and above 48 KB the opt-in);
+//     the main path's launches keep the burn's shared memory and grid.
 //   * The grid is one CTA an SM, at most 2 * the active clusters that
-//     cudaOccupancyMaxActiveClusters reports, and at least the burn's CTAs.
+//     cudaOccupancyMaxActiveClusters reports for the launch's shared
+//     memory, and at least the burn's CTAs.
 //   * The row barrier is cg::this_grid().sync(), so the kernel REQUIRES a
 //     cooperative launch: cudaLaunchKernelEx with
 //     cudaLaunchAttributeCooperative beside the cluster dimension, which
@@ -53,8 +70,10 @@
 //     counts[1] and counts[2] once, at its end; the host checks counts[0]
 //     == sum(row[0]) * burn CTAs, counts[1] == sum(row[1]) * grid and
 //     counts[2] == sum(row[2]) * grid after its sync.
-#include <atomic>
 #include <cstdint>
+#include <map>
+#include <mutex>
+#include <tuple>
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -72,6 +91,9 @@ using synapse::kCluster;
 using synapse::kRows;
 using synapse::kThreads;
 
+static_assert(synapse::kCollThreads == kThreads,
+              "coll.cuh lays the carry's share out for the burn's CTAs");
+
 template <int T>
 __global__ void __launch_bounds__(kThreads, 1)
     segment_kernel(const int* __restrict__ table, int n_rows,
@@ -88,12 +110,23 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int64_t row0 = int64_t(blockIdx.x / kCluster) * kRows;
   extern __shared__ float4 smem4[];
   float* panel = reinterpret_cast<float*>(smem4);
+  // the carry's share: the peer's threads' columns, past the burn's
+  float* share = panel + B::kSmem / sizeof(float);
+  const int t = blockIdx.x * kThreads + threadIdx.x;
+  const int threads = gridDim.x * kThreads;
   float xr[B::KG][B::CW];
   if (burns) {
     synapse::burn_load_x<T>(x, rank, xr);
     synapse::burn_load_panel<T>(x, row0, panel);
-    // no CTA stores into the other's shared memory before it runs
-    cluster.sync();
+  }
+  // no CTA stores into the other's shared memory before it runs
+  if (burns || coll != nullptr) cluster.sync();
+  if (coll != nullptr) {
+    synapse::coll_load_in(
+        coll,
+        synapse::peer_columns(share, rank ^ 1, int(coll_n), int(coll_inner),
+                              t, threads),
+        int(coll_inner), t, threads);
   }
   cg::grid_group grid = cg::this_grid();
   int64_t it = 0, pass = start, steps = 0;
@@ -116,13 +149,25 @@ __global__ void __launch_bounds__(kThreads, 1)
       pass += mi;
     }
     if (wi > 0) {
-      synapse::coll_steps(coll, coll_n, coll_inner, coll_kind, wi,
-                          int64_t(blockIdx.x) * blockDim.x + threadIdx.x,
-                          int64_t(gridDim.x) * blockDim.x);
+      using synapse::opaque;
+      synapse::coll_steps_peer(
+          synapse::peer_columns(share, opaque(rank ^ 1), opaque(int(coll_n)),
+                                opaque(int(coll_inner)), opaque(t),
+                                opaque(threads)),
+          opaque(coll_kind), wi);
       steps += wi;
     }
   }
   if (burns) synapse::burn_store_panel<T>(panel, rank, row0, it, out);
+  if (coll != nullptr) {
+    synapse::coll_write_out(
+        coll,
+        synapse::peer_columns(share, rank ^ 1, int(coll_n), int(coll_inner),
+                              t, threads),
+        int(coll_inner), t, threads);
+    // the peer reads this CTA's shared memory until here
+    cluster.sync();
+  }
   if (threadIdx.x == 0) {
     atomicAdd(counts, static_cast<unsigned long long>(burns ? it : 0));
     atomicAdd(counts + 1, static_cast<unsigned long long>(pass - start));
@@ -131,12 +176,12 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 template <int T>
-cudaLaunchConfig_t segment_config(int grid, cudaStream_t s,
+cudaLaunchConfig_t segment_config(int grid, size_t smem, cudaStream_t s,
                                   cudaLaunchAttribute (&attr)[2]) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid, 1, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = Burn<T>::kSmem;  // 24 KB at most: no opt-in
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = kCluster;
@@ -149,15 +194,32 @@ cudaLaunchConfig_t segment_config(int grid, cudaStream_t s,
   return cfg;
 }
 
+constexpr size_t kNoOptIn = 48 * 1024;
+
 // info: grid CTAs, burn CTAs, active clusters the occupancy query allows
+// for `smem` bytes of dynamic shared memory a CTA, smem.  Above 48 KB the
+// kernel opts in to the device's whole per-CTA limit, always the same
+// value, so a launch of another size on another thread never finds the
+// attribute below its own size.
 template <int T>
-cudaError_t segment_grid(int device, int64_t* info) {
+cudaError_t segment_grid(int device, size_t smem, int64_t* info) {
   int sms = 0;
   cudaError_t err =
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
+  if (smem > kNoOptIn) {
+    int optin = 0;
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    if (err != cudaSuccess) return err;
+    if (smem > size_t(optin)) return cudaErrorInvalidValue;
+    err = cudaFuncSetAttribute(segment_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin);
+    if (err != cudaSuccess) return err;
+  }
   cudaLaunchAttribute attr[2];
-  cudaLaunchConfig_t cfg = segment_config<T>(kCluster, nullptr, attr);
+  cudaLaunchConfig_t cfg = segment_config<T>(kCluster, smem, nullptr, attr);
   cfg.numAttrs = 1;  // the query takes the cluster dimension alone
   int clusters = 0;
   err = cudaOccupancyMaxActiveClusters(&clusters, segment_kernel<T>, &cfg);
@@ -169,27 +231,73 @@ cudaError_t segment_grid(int device, int64_t* info) {
   info[0] = grid;
   info[1] = Burn<T>::kCtas;
   info[2] = clusters;
+  info[3] = static_cast<int64_t>(smem);
   return cudaSuccess;
 }
 
-// the occupancy query's answer per (tile, device): a launch asks once
-constexpr int kMaxDevices = 64;
-std::atomic<int64_t> g_grid[3][kMaxDevices][3];
+size_t burn_smem(int64_t tile) {
+  return tile == 64    ? Burn<64>::kSmem
+         : tile == 128 ? Burn<128>::kSmem
+                       : Burn<256>::kSmem;
+}
 
-cudaError_t grid_for(int64_t tile, int device, int64_t* info) {
-  const int t = tile == 64 ? 0 : tile == 128 ? 1 : tile == 256 ? 2 : -1;
-  if (t < 0 || device < 0) return cudaErrorInvalidValue;
-  if (device < kMaxDevices && g_grid[t][device][0].load() > 0) {
-    for (int i = 0; i < 3; ++i) info[i] = g_grid[t][device][i].load();
-    return cudaSuccess;
+// the occupancy query's answer per (tile, device, shared memory): a
+// launch of one size asks once, and a wire launch, whose carry's share
+// grows the shared memory, never takes the grid of a launch without one
+std::mutex g_grid_lock;
+std::map<std::tuple<int64_t, int, size_t>, std::tuple<int64_t, int64_t,
+                                                      int64_t>>
+    g_grid;
+
+cudaError_t grid_for(int64_t tile, int device, size_t smem, int64_t* info) {
+  if ((tile != 64 && tile != 128 && tile != 256) || device < 0) {
+    return cudaErrorInvalidValue;
   }
-  const cudaError_t err = t == 0   ? segment_grid<64>(device, info)
-                          : t == 1 ? segment_grid<128>(device, info)
-                                   : segment_grid<256>(device, info);
-  if (err == cudaSuccess && device < kMaxDevices) {
-    for (int i = 2; i >= 0; --i) g_grid[t][device][i].store(info[i]);
+  const auto key = std::make_tuple(tile, device, smem);
+  {
+    std::lock_guard<std::mutex> hold(g_grid_lock);
+    const auto it = g_grid.find(key);
+    if (it != g_grid.end()) {
+      std::tie(info[0], info[1], info[2]) = it->second;
+      info[3] = static_cast<int64_t>(smem);
+      return cudaSuccess;
+    }
+  }
+  const cudaError_t err = tile == 64    ? segment_grid<64>(device, smem, info)
+                          : tile == 128 ? segment_grid<128>(device, smem, info)
+                                        : segment_grid<256>(device, smem, info);
+  if (err == cudaSuccess) {
+    std::lock_guard<std::mutex> hold(g_grid_lock);
+    g_grid[key] = std::make_tuple(info[0], info[1], info[2]);
   }
   return err;
+}
+
+// info[5]: a launch's grid, burn CTAs, active clusters, dynamic shared
+// memory a CTA (the burn's, plus the carry's share when coll_n > 0) and
+// the device's per-CTA limit.  The share depends on the grid (the columns
+// a thread owns) and the grid on the share (occupancy), so a grid the
+// share shrinks is sized again; an n whose share does not fit is refused.
+cudaError_t plan_launch(int64_t tile, int device, int64_t coll_n,
+                        int64_t coll_inner, int64_t* info) {
+  int optin = 0;
+  cudaError_t err = cudaDeviceGetAttribute(
+      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
+  info[4] = optin;
+  const size_t base = burn_smem(tile);
+  err = grid_for(tile, device, base, info);
+  if (err != cudaSuccess || coll_n == 0) return err;
+  for (int tries = 0; tries < 4; ++tries) {
+    const int64_t smem =
+        int64_t(base) +
+        synapse::coll_share_bytes(coll_n, coll_inner, info[0] * kThreads);
+    if (smem > optin) return cudaErrorInvalidValue;
+    const int64_t grid = info[0];
+    err = grid_for(tile, device, size_t(smem), info);
+    if (err != cudaSuccess || info[0] == grid) return err;
+  }
+  return cudaErrorInvalidConfiguration;
 }
 
 // the wire leg's carry: n shards of `inner` floats, stepped by `kind`
@@ -203,9 +311,10 @@ template <int T>
 cudaError_t launch(const int* table, int n_rows, const float* x, float* out,
                    float4* ring, int64_t nvec, int64_t slots, int64_t start,
                    int64_t total_ci, const Coll& coll,
-                   unsigned long long* counts, int grid, cudaStream_t s) {
+                   unsigned long long* counts, int grid, size_t smem,
+                   cudaStream_t s) {
   cudaLaunchAttribute attr[2];
-  const cudaLaunchConfig_t cfg = segment_config<T>(grid, s, attr);
+  const cudaLaunchConfig_t cfg = segment_config<T>(grid, smem, s, attr);
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, segment_kernel<T>, table, n_rows, x, out, ring, nvec, slots,
       start, total_ci, coll.carry, coll.n, coll.inner, coll.kind, counts);
@@ -214,14 +323,22 @@ cudaError_t launch(const int* table, int n_rows, const float* x, float* out,
 
 }  // namespace
 
-// info (int64[3]): the grid (CTAs) a segment at `tile` launches, the CTAs
-// that burn, and the active clusters cudaOccupancyMaxActiveClusters allows.
-extern "C" int synapse_segment_grid(int64_t tile, int64_t device,
+// info (int64[5]): the grid (CTAs) a segment at `tile` launches with a
+// wire carry of coll_n shards of coll_inner float32 (coll_n 0: none), the
+// CTAs that burn, the active clusters cudaOccupancyMaxActiveClusters
+// allows, the dynamic shared memory a CTA takes, and the device's per-CTA
+// limit.  Returns cudaErrorInvalidValue for a carry whose share does not
+// fit beside the burn's.
+extern "C" int synapse_segment_grid(int64_t tile, int64_t coll_n,
+                                    int64_t coll_inner, int64_t device,
                                     void* info) {
+  if (coll_n < 0 || (coll_n > 0 && coll_inner < 1)) {
+    return cudaErrorInvalidValue;
+  }
   cudaError_t err = cudaSetDevice(static_cast<int>(device));
   if (err != cudaSuccess) return err;
-  return grid_for(tile, static_cast<int>(device),
-                  static_cast<int64_t*>(info));
+  return plan_launch(tile, static_cast<int>(device), coll_n, coll_inner,
+                     static_cast<int64_t*>(info));
 }
 
 // table: n_rows x 3 int32 on `device` (rows >= 0); x and out: tile x tile
@@ -230,7 +347,8 @@ extern "C" int synapse_segment_grid(int64_t tile, int64_t device,
 // when no row streams; coll: the wire leg's carry, coll_n shards of
 // coll_inner float32 each, stepped by the loop body of coll_kind (0
 // all-reduce, 1 all-gather, 2 collective-permute), or null when no row
-// takes collective steps; counts: 3 zeroed int64 on `device`.  All
+// takes collective steps (coll_n shards whose share fits beside the
+// burn's: synapse_segment_grid); counts: 3 zeroed int64 on `device`.  All
 // 16-byte aligned.  One cooperative launch on `stream`; returns its error
 // (the driver's refusal of the cooperative launch included), or
 // cudaSuccess.
@@ -250,10 +368,12 @@ extern "C" int synapse_segment(const void* table, int64_t n_rows,
   }
   cudaError_t err = cudaSetDevice(static_cast<int>(device));
   if (err != cudaSuccess) return err;
-  int64_t info[3];
-  err = grid_for(tile, static_cast<int>(device), info);
+  int64_t info[5];
+  err = plan_launch(tile, static_cast<int>(device), coll ? coll_n : 0,
+                    coll_inner, info);
   if (err != cudaSuccess) return err;
   const int grid = static_cast<int>(info[0]);
+  const size_t smem = static_cast<size_t>(info[3]);
   const int* t = static_cast<const int*>(table);
   const float* xf = static_cast<const float*>(x);
   float* of = static_cast<float*>(out);
@@ -266,12 +386,12 @@ extern "C" int synapse_segment(const void* table, int64_t n_rows,
   switch (tile) {
     case 64:
       return launch<64>(t, rows, xf, of, rf, n / 4, slots, start, total_ci,
-                        w, c, grid, s);
+                        w, c, grid, smem, s);
     case 128:
       return launch<128>(t, rows, xf, of, rf, n / 4, slots, start, total_ci,
-                         w, c, grid, s);
+                         w, c, grid, smem, s);
     default:
       return launch<256>(t, rows, xf, of, rf, n / 4, slots, start, total_ci,
-                         w, c, grid, s);
+                         w, c, grid, smem, s);
   }
 }

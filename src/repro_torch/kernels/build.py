@@ -56,8 +56,10 @@ SIGNATURES = {
     # kind code, counts, device, stream
     "synapse_segment": (ctypes.c_int, [_P, _I, _P, _P, _P, _I, _I, _I, _I,
                                        _I, _P, _I, _I, _I, _P, _I, _P]),
-    # tile, device, info (int64[3]: grid, burn CTAs, active clusters)
-    "synapse_segment_grid": (ctypes.c_int, [_I, _I, _P]),
+    # tile, wire carry's shards (0: none) and shard elements, device, info
+    # (int64[5]: grid, burn CTAs, active clusters, shared memory a CTA,
+    # the device's per-CTA limit)
+    "synapse_segment_grid": (ctypes.c_int, [_I, _I, _I, _I, _P]),
     # q, k, v, out, BH, BKV, Sq, Sk, hd, dtype code, causal, window (-1 for
     # none), softcap (0 for none), scale, device, stream
     "synapse_flash_attention": (ctypes.c_int, [_P, _P, _P, _P, _I, _I, _I,
@@ -68,6 +70,10 @@ SIGNATURES = {
                                           _P]),
     # x, sink, n, reps, device, stream (a measuring probe, no port)
     "synapse_l2_read": (ctypes.c_int, [_P, _P, _I, _I, _I, _P]),
+    # carry, n, CTAs, kind code, steps, medium (0 L2, 1 the peer CTA's
+    # shared memory), cycles, device, stream (a measuring probe, no port)
+    "synapse_wire_probe": (ctypes.c_int, [_P, _I, _I, _I, _I, _I, _P, _I,
+                                          _P]),
     "synapse_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 

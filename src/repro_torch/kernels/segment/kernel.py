@@ -11,6 +11,11 @@ only when row r is done everywhere.  Tiles 64, 128 and 256 (``TILES``),
 the burn's cluster tiles.  The source says what bounds it and why it is
 shaped so.
 
+The wire carry lives, for the length of a launch, in the shared memory of
+the CTAs (each thread's columns in the other CTA of its cluster), beside
+the burn's panel: ``wire_share_bytes`` a CTA, which bounds the shards a
+carry may have (``max_wire_shards``; more raise before any launch).
+
 The kernel counts, on the device, the burn iterations, ring passes and
 collective steps that every CTA ran.  ``SegmentRun.settle()``, called
 after the caller's sync, reads them back, raises unless they are the
@@ -37,6 +42,12 @@ from repro_torch.kernels.segment import ref
 
 #: the tiles the kernel's burn takes (the compute atom's cluster tiles)
 TILES = (64, 128, 256)
+#: threads a CTA (csrc/burn.cuh ``kThreads``)
+CTA_THREADS = 256
+#: shared memory a CTA may take on an H100 SXM
+#: (``cudaDevAttrMaxSharedMemoryPerBlockOptin``: 227 KB); on the card the
+#: limit is the device's own
+SMEM_LIMIT_H100 = 232448
 
 #: kernel launches issued by ``run_segment`` (one a segment; CUDA only)
 launches = 0
@@ -52,18 +63,65 @@ steps = 0
 _count_lock = threading.Lock()
 
 
-def grid_info(tile: int, device) -> dict:
-    """How a segment at ``tile`` launches on a CUDA ``device``: its grid,
-    the CTAs that burn, and the active clusters the occupancy query
-    allows.  Every launch is cooperative (the row barrier is a grid sync);
-    a launch the driver refuses raises."""
+def burn_smem_bytes(tile: int) -> int:
+    """Shared memory a CTA gives the burn at ``tile`` (``Burn<T>::kSmem``
+    of csrc/burn.cuh): two copies of the 4-row panel and the 8 warps'
+    partial sums of its half of the columns."""
+    return (2 * 4 * tile + 4 * 8 * (tile // 2)) * 4
+
+
+def wire_share_bytes(n: int, inner: int, grid: int) -> int:
+    """Shared memory a CTA gives a wire carry of ``n`` shards of ``inner``
+    float32 on a grid of ``grid`` CTAs (``coll_share_bytes`` of
+    csrc/coll.cuh): the n elements of every column its peer's threads
+    own, each thread ``ceil(inner / threads)`` columns."""
+    threads = grid * CTA_THREADS
+    return n * (-(-inner // threads)) * CTA_THREADS * 4
+
+
+def max_wire_shards(tile: int, inner: int, grid: int,
+                    limit: int = SMEM_LIMIT_H100) -> int:
+    """The most shards a wire carry of ``inner`` float32 a shard may have
+    beside the burn at ``tile``, within ``limit`` bytes a CTA."""
+    return (limit - burn_smem_bytes(tile)) // wire_share_bytes(1, inner,
+                                                                 grid)
+
+
+def check_wire_fits(tile: int, n: int, inner: int, grid: int,
+                    limit: int = SMEM_LIMIT_H100) -> int:
+    """The shared memory a CTA of a launch with this carry takes; raises
+    ValueError, naming the limit, when it does not fit."""
+    need = burn_smem_bytes(tile) + wire_share_bytes(n, inner, grid)
+    if need > limit:
+        raise ValueError(
+            f"a segment's wire carry of {n} shards of {inner} float32 "
+            f"needs {need} bytes of shared memory a CTA at tile {tile} on "
+            f"{grid} CTAs, beyond the limit of {limit} bytes: at most "
+            f"{max_wire_shards(tile, inner, grid, limit)} shards")
+    return need
+
+
+def grid_info(tile: int, device, wire=None) -> dict:
+    """How a segment at ``tile`` launches on a CUDA ``device``, with a
+    wire carry of shape ``wire`` (n, inner) or none: its grid, the CTAs
+    that burn, the active clusters the occupancy query allows, the shared
+    memory a CTA takes and the device's limit.  Every launch is
+    cooperative (the row barrier is a grid sync); a launch the driver
+    refuses raises, and a carry whose share does not fit raises
+    ValueError before any launch."""
     dev = torch.device(device)
+    index = dev.index if dev.index is not None \
+        else torch.cuda.current_device()
     lib = build.load()
-    info = (ctypes.c_int64 * 3)()
-    build.check(lib, lib.synapse_segment_grid(
-        tile, dev.index if dev.index is not None
-        else torch.cuda.current_device(), info), "segment grid")
-    return {"grid": info[0], "burn_ctas": info[1], "max_clusters": info[2]}
+    info = (ctypes.c_int64 * 5)()
+    build.check(lib, lib.synapse_segment_grid(tile, 0, 0, index, info),
+                "segment grid")
+    if wire is not None:
+        check_wire_fits(tile, wire[0], wire[1], info[0], info[4])
+        build.check(lib, lib.synapse_segment_grid(
+            tile, wire[0], wire[1], index, info), "segment grid")
+    return {"grid": info[0], "burn_ctas": info[1], "max_clusters": info[2],
+            "smem_bytes": info[3], "smem_limit": info[4]}
 
 
 def check_input(table, x: Optional[torch.Tensor], ring: Optional[Ring],
@@ -163,20 +221,23 @@ def run_segment(table, x: Optional[torch.Tensor], ring: Optional[Ring],
     global launches, wire_launches
     t = check_input(table, x, ring, w, kind)
     ci, mi, wi = (int(t[:, i].sum()) for i in range(3))
-    start = ring.claim(mi) if mi else 0
-    slot = ring.slot(start + mi - 1) if mi else None
     wire = w if wi else None
     dev = x.device if ci else ring.device if mi else \
         w.device if wi else None
     if dev is None:
         return SegmentRun(None, None)
     if dev.type == "cpu":
+        start = ring.claim(mi) if mi else 0
         y = ref.run_segment(t, x, ring.data if mi else None, start=start,
                             w=wire, kind=kind)
-        return SegmentRun(y, slot, wire)
-    lib = build.load()
+        return SegmentRun(y, ring.slot(start + mi - 1) if mi else None,
+                          wire)
     tile = x.shape[0] if ci else TILES[0]
-    info = grid_info(tile, dev)
+    # before the ring numbers any pass: a carry that does not fit raises
+    info = grid_info(tile, dev, tuple(w.shape) if wi else None)
+    start = ring.claim(mi) if mi else 0
+    slot = ring.slot(start + mi - 1) if mi else None
+    lib = build.load()
     stream = torch.cuda.current_stream(dev)
     # the table crosses on the launch stream, from pinned memory
     table_dev = torch.from_numpy(np.ascontiguousarray(t)).pin_memory().to(

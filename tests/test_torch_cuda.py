@@ -185,9 +185,13 @@ def test_segment_and_ring_wrappers_raise_and_never_fall_back(dev):
 
 
 # (shards shape, collective dim): a 2-shard mesh, a (2, 2) mesh along
-# each axis, and a 4-shard mesh
+# each axis, a 4-shard mesh whose inner is no multiple of 4 (one float a
+# column), an inner of 16-byte vectors with several a thread and a ragged
+# tail of them, 3 shards, an outer axis with a middle one, and all-gather
+# blocks that are no multiple of 4 (10 beside an inner of 20 that is; 6)
 COLL_SHAPES = [((2, 4096), 0), ((2, 2, 1024), 0), ((2, 2, 1024), 1),
-               ((4, 333), 0)]
+               ((4, 333), 0), ((2, (1 << 22) + 12), 0), ((3, 4096), 0),
+               ((2, 3, 2, 512), 1), ((3, 2, 10), 0), ((2, 2, 3, 6), 2)]
 
 
 @pytest.mark.parametrize("kind", wref.KINDS)
@@ -207,14 +211,24 @@ def test_collective_matches_plain(dev, kind, shape, dim):
     assert wk.launches - before == 1
 
 
+def wire_limit(tile, dev):
+    """The most shards a (n, 32768) carry may have at ``tile``."""
+    return sk.max_wire_shards(tile, 1 << 15, sk.grid_info(tile, dev)["grid"],
+                              sk.grid_info(tile, dev)["smem_limit"])
+
+
 @pytest.mark.parametrize("kind", wref.KINDS)
 @pytest.mark.parametrize("tile", sk.TILES)
-@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 8, "limit"])
 def test_segment_wire_leg_matches_plain(dev, n, tile, kind):
-    """The segment kernel's collective steps on an (n, 32768) carry (the
-    axis of a 2-shard or a (2, 2) mesh, and a 4-shard mesh), after its
-    burns and passes, against the plain walk within 1e-6; the device
-    counts every CTA's steps."""
+    """The segment kernel's collective steps on an (n, 32768) carry (a
+    1-shard axis, the axis of a 2-shard or a (2, 2) mesh, 3, 4 and 8
+    shards, and the most shards whose share of shared memory fits beside
+    the burn), after its burns and passes, against the plain walk within
+    1e-6; the device counts every CTA's steps."""
+    if n == "limit":
+        n = wire_limit(tile, dev)
+        assert n > 100
     rng = np.random.default_rng(7)
     t = np.asarray([[2, 1, 3], [0, 0, 0], [0, 0, 5], [1, 2, 0]], np.int32)
     x = torch.from_numpy((rng.standard_normal((tile, tile)) * 0.1).astype(
@@ -233,6 +247,55 @@ def test_segment_wire_leg_matches_plain(dev, n, tile, kind):
     torch.testing.assert_close(run.w, want_w, rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(run.y, want_y, atol=1e-5, rtol=1e-5)
     assert torch.equal(ring.data, want_ring)
+
+
+@pytest.mark.parametrize("tile", sk.TILES)
+def test_segment_without_wire_after_one_with_it(dev, tile):
+    """A wire launch whose carry's share takes the shared memory past 48 KB
+    (the opt-in), then one without wire rows at the same tile: each
+    launches at its own shared memory (the kernel's sizes are the
+    wrapper's plain functions), the grid cache keeps them apart, and both
+    match the plain walk."""
+    rng = np.random.default_rng(8)
+    n = wire_limit(tile, dev)
+    x = torch.from_numpy((rng.standard_normal((tile, tile)) * 0.1).astype(
+        np.float32)).to(dev)
+    plain = sk.grid_info(tile, dev)
+    wired = sk.grid_info(tile, dev, (n, 1 << 15))
+    assert plain["smem_bytes"] == sk.burn_smem_bytes(tile)
+    assert wired["smem_bytes"] == sk.burn_smem_bytes(tile) + \
+        sk.wire_share_bytes(n, 1 << 15, wired["grid"]) > 48 * 1024
+    for t, w in (([[3, 1, 4], [2, 0, 1]], torch.from_numpy(
+                     rng.standard_normal((n, 1 << 15)).astype(np.float32))
+                  .to(dev)),
+                 ([[3, 1, 0], [2, 2, 0]], None)):
+        t = np.asarray(t, np.int32)
+        ring = mk.Ring(1 << 18, dev, slots=3)
+        want_w = None if w is None else w.clone()
+        want_ring = ring.data.clone()
+        want_y = sref.run_segment(t, x, want_ring, w=want_w)
+        run = sk.run_segment(t, x, ring, w)
+        torch.cuda.synchronize()
+        run.settle()
+        torch.testing.assert_close(run.y, want_y, atol=1e-5, rtol=1e-5)
+        assert torch.equal(ring.data, want_ring)
+        if w is not None:
+            torch.testing.assert_close(run.w, want_w, rtol=1e-6, atol=1e-6)
+    assert sk.grid_info(tile, dev) == plain
+
+
+def test_segment_wire_carry_beyond_the_limit_raises(dev):
+    """A carry one shard beyond the limit raises, naming it, before any
+    launch: no counter moves and the ring numbers no pass."""
+    n = wire_limit(256, dev) + 1
+    x = torch.eye(256, device=dev)
+    ring = mk.Ring(1 << 18, dev, slots=2)
+    w = torch.ones((n, 1 << 15), device=dev)
+    before = (sk.launches, sk.wire_launches, sk.steps, ring.passes)
+    with pytest.raises(ValueError, match="beyond the limit of"):
+        sk.run_segment(np.asarray([[1, 1, 1]], np.int32), x, ring, w)
+    assert (sk.launches, sk.wire_launches, sk.steps, ring.passes) == before
+    assert torch.equal(w, torch.ones_like(w))
 
 
 def test_mesh_bound_replay_on_the_card(dev):

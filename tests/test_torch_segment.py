@@ -158,6 +158,30 @@ def test_segment_wrapper_takes_only_the_cluster_tiles():
         runner.run(T.FusedSegment(table=[[2, 0, 0]]))
 
 
+# the wire carry's share of a CTA's shared memory on the H100's grid of
+# 132 CTAs (33,792 threads): the (n, 32768) carry of a fused segment is
+# one column a thread, n x 1 KB a CTA; on a grid of 64 CTAs two columns
+@pytest.mark.parametrize("n,grid,share", [(2, 132, 2048), (4, 132, 4096),
+                                          (8, 132, 8192), (2, 64, 4096)])
+def test_wire_share_of_shared_memory(n, grid, share):
+    assert tsk.wire_share_bytes(n, 1 << 15, grid) == share
+    assert tsk.check_wire_fits(256, n, 1 << 15, grid) == 24576 + share
+
+
+# the burn's shared memory at each tile, and the most shards whose share
+# fits beside it within an H100's 232,448 bytes a CTA
+@pytest.mark.parametrize("tile,burn,most", [(64, 6144, 221),
+                                            (128, 12288, 215),
+                                            (256, 24576, 203)])
+def test_wire_carry_limit_beside_the_burn(tile, burn, most):
+    assert tsk.burn_smem_bytes(tile) == burn
+    assert tsk.max_wire_shards(tile, 1 << 15, 132) == most
+    assert tsk.check_wire_fits(tile, most, 1 << 15, 132) <= 232448
+    with pytest.raises(ValueError, match=f"{most + 1} shards .* beyond the "
+                       f"limit of 232448 bytes: at most {most} shards"):
+        tsk.check_wire_fits(tile, most + 1, 1 << 15, 132)
+
+
 @pytest.mark.parametrize("name", sorted(PROFILES))
 def test_cuda_fused_report_equals_reference_jnp_fused(name, tmp_path):
     r_em, t_em = _cuda_em(R), _cuda_em(T, backend="cuda")
