@@ -94,6 +94,18 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
              waves), traced prefill and decode steps, the profile stored,
              reloaded and replayed on the ``"cuda"`` emulator backend, and
              a full-depth report of the kernel against dense attention
+  train      the training path: blocked attention (flash and banded)
+             against dense attention at Qwen2-7B's heads, forward and
+             dq/dk/dv in float32 and the forward in bf16, each timed
+             beside ``scaled_dot_product_attention``; the tiny config's
+             train step on the card against the CPU; Qwen2-7B's widths cut
+             to 4 layers trained through ``make_job``/``train`` on 1 x 4096
+             tokens (bf16 compute, f32 master weights, remat, chunked
+             loss) with a checkpoint after step 2, a failure injected
+             there and a restore (step times, tokens/s, peak memory,
+             the share of the bf16 peak, checkpoint seconds, a traced
+             step's busy share); the profile of two steps replayed on the
+             ``"cuda"`` backend in one segment launch
 
 Then one ``{"kernels": [...]}`` line and, last, one ``{"ok": true, ...}``
 line.  Any failed check exits non-zero before the last line.  Without a
@@ -218,6 +230,38 @@ WIRE_SHARDS = (2, 4)
 SERVE_B, SERVE_S, SERVE_HQ, SERVE_HK, SERVE_HD = 4, 2048, 28, 4, 128
 SERVE_PROMPTS = (2048, 1536, 1024, 512)
 SERVE_NEW_TOKENS = 16
+# blocked attention against dense attention at Qwen2-7B's heads (28 query,
+# 4 KV heads, head dim 128), batch 1: the JAX package's own tolerances
+# (tests/test_model_correctness.py): 2e-5 forward and 3e-5 gradients in
+# float32, 2e-2 in bfloat16; the banded case is a 512-token window with
+# block_q 512 and block_kv 1024 (a band of 1024 keys)
+TRAIN_ATTN_SEQS = (2048, 4096)
+ATTN_BLOCKS = (512, 1024)          # block_q, block_kv: RunConfig's defaults
+ATTN_FWD_TOL, ATTN_GRAD_TOL, ATTN_BF16_TOL = 2e-5, 3e-5, 2e-2
+BANDED_WINDOW = 512
+# the tiny config of tests/test_train_loop.py, one step on the card against
+# the same step on the CPU (float32, TF32 off), from init seeds 0-3 and
+# batches 0 and 5: loss and gradient norm within 1e-4; the AdamW moments
+# within 5e-4 of each leaf's largest (the config's float32 floor: its
+# stacked weights' std of 0.71 saturates the attention, and the two
+# packages' moments differ by up to 3.8e-4 of a leaf's largest on the CPU,
+# tests/test_torch_train.py); the card's parameters within 1e-6 of AdamW
+# applied on the host to the card's own moments.  Parameters are not held
+# to the CPU's directly: AdamW's first step, lr g / (|g| + eps), turns a
+# float32 gradient difference near g = 0 into up to lr of a parameter
+# (2.4e-4 seen on the card).  The same steps with TF32 matmuls on the card
+# are the planted fault: the bounds must reject every one of them
+TINY_STEP_TOL, TINY_MOMENT_TOL, TINY_UPDATE_TOL = 1e-4, 5e-4, 1e-6
+TINY_SEEDS, TINY_BATCHES = (0, 1, 2, 3), (0, 5)
+# training at Qwen2-7B's published widths cut to 4 layers (2.02e9
+# parameters, 24.2 GB of float32 weights and moments), batch 1 x 4096
+# tokens so that "auto" attention takes the blocked path; 3 steps with a
+# checkpoint after step 2, one kept, and a failure injected before step 2,
+# so the run restores from step 2.  One checkpoint, not one a step: a
+# checkpoint commits before the last one is collected, so a second save
+# would put two (45.2 GiB) on the disk at once
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_STEPS, TRAIN_FAIL_AT = 4, 4096, 3, 2
+TRAIN_CKPT_EVERY = 2
 
 
 def emit(phase: str, **fields) -> None:
@@ -2128,6 +2172,334 @@ def phase_serve(torch, np, rows):
          max_abs_logit=last["full"].abs().max().item())
 
 
+def _attn_grads(torch, fn, q, k, v, w):
+    """fn(q, k, v)'s output, the gradients of sum(out * w), and the name of
+    the output's backward node (which path the attention took)."""
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = fn(*leaves)
+    return (out.detach(), torch.autograd.grad(out, leaves, w),
+            type(out.grad_fn).__name__)
+
+
+def _worst(torch, got, want, tol):
+    """(max |got - want|, whether every element is within tol + tol|want|)."""
+    err = (got.float() - want.float()).abs()
+    return err.max().item(), bool((err <= tol + tol * want.float().abs())
+                                  .all())
+
+
+def tiny_step_errors(torch, dev, seed: int, batch_step: int,
+                     tf32: bool = False) -> dict:
+    """How far one train step of the tiny config on the card is from the
+    same step on the CPU, from parameters drawn with ``seed`` and batch
+    ``batch_step``: loss and gradient norm (relative), the moments (of each
+    leaf's largest), and the card's parameters from AdamW's first step
+    applied on the host to the card's own moments.  ``tf32`` lets the
+    card's float32 matmuls run in TF32 (the planted fault); ``ok`` says
+    whether every error is within its bound."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.configs.run import RunConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.params import map_tensors
+    from repro_torch.optim.adamw import OptConfig, lr_at, tree_leaves
+    from repro_torch.train.step import init_train_state, make_train_step
+    tiny = ModelConfig(name="tiny-lm", family="dense", num_layers=2,
+                       d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
+                       d_ff=128, vocab_size=128, tie_embeddings=True)
+    model = build_model(tiny, RunConfig(param_dtype="float32",
+                                        compute_dtype="float32",
+                                        remat="full", loss_chunk=16))
+    opt = OptConfig(lr=1e-2, warmup_steps=10, decay_steps=2000,
+                    weight_decay=0.0)
+    step = make_train_step(model, opt)
+    host = init_train_state(model, torch.Generator().manual_seed(seed),
+                            device="cpu")
+    p0 = map_tensors(host["params"], torch.clone)
+    card = map_tensors(host, lambda t: t.to(dev, copy=True))
+    batch = SyntheticLM(DataConfig(vocab_size=128, seq_len=64,
+                                   global_batch=8, seed=3),
+                        device="cpu").batch_at(batch_step)
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        card, m_card = step(card, map_tensors(batch, lambda t: t.to(dev)))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    host, m_host = step(host, batch)
+
+    def rel(k):
+        return abs(m_card[k].item() / m_host[k].item() - 1)
+
+    moments = update = 0.0
+    lr = lr_at(opt, 0)
+    for p, c_p, c_m, c_n, h_m, h_n in zip(*(tree_leaves(t) for t in (
+            p0, card["params"], card["opt"]["mu"], card["opt"]["nu"],
+            host["opt"]["mu"], host["opt"]["nu"]))):
+        c_m, c_n = c_m.cpu(), c_n.cpu()
+        for a, b in ((c_m, h_m), (c_n, h_n)):
+            moments = max(moments, ((a - b).abs().max()
+                                    / b.abs().max().clamp(min=1e-30)).item())
+        upd = (c_m / (1 - opt.b1)) / ((c_n / (1 - opt.b2)).sqrt() + opt.eps)
+        want = p - lr * (upd + opt.weight_decay * p)
+        update = max(update, (c_p.cpu() - want).abs().max().item())
+    errs = {"seed": seed, "batch": batch_step, "tf32": tf32,
+            "loss_rel_err": rel("loss"),
+            "grad_norm_rel_err": rel("grad_norm"), "moments_err": moments,
+            "update_err": update}
+    errs["ok"] = (errs["loss_rel_err"] <= TINY_STEP_TOL
+                  and errs["grad_norm_rel_err"] <= TINY_STEP_TOL
+                  and moments <= TINY_MOMENT_TOL
+                  and update <= TINY_UPDATE_TOL)
+    return errs
+
+
+def phase_train(torch, np, calib):
+    """The training path: blocked attention against dense attention at
+    Qwen2-7B's heads, the tiny config's step on the card against the CPU,
+    then Qwen2-7B's widths cut to 4 layers trained through make_job/train
+    with a checkpoint, an injected failure and a restore, and
+    the profile of two steady steps replayed on the kernel backend."""
+    import dataclasses
+    import statistics
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.configs.run import TRAIN_RUN
+    from repro_torch.core import (H100_SXM, Emulator, ProfileStore,
+                                  RuntimeProfiler, calibrate, predict)
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models.layers import attend_blocked, attend_full
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.runtime.supervisor import FailurePlan, SupervisorConfig
+    from repro_torch.train.loop import make_job, train
+    dev = torch.device("cuda")
+    cfg = get_config("qwen2-7b")
+    hq, hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    # -- blocked attention against dense attention on the card ------------
+    def dense(window):
+        def fn(q, k, v):
+            pos = torch.arange(q.shape[1], device=dev)
+            return attend_full(q, k, v, q_pos=pos, k_pos=pos, causal=True,
+                               window=window, softcap=None)
+        return fn
+
+    def blocked(window):
+        def fn(q, k, v):
+            return attend_blocked(q, k, v, causal=True, window=window,
+                                  softcap=None, block_q=ATTN_BLOCKS[0],
+                                  block_kv=ATTN_BLOCKS[1])
+        return fn
+
+    def sdpa(window):
+        def fn(q, k, v):
+            S = q.shape[1]
+            mask = None
+            if window is not None:
+                i = torch.arange(S, device=dev)
+                d = i[:, None] - i[None, :]
+                mask = (d >= 0) & (d < window)
+            out = F.scaled_dot_product_attention(
+                q.reshape(1, S, hq, hd).transpose(1, 2), k.transpose(1, 2),
+                v.transpose(1, 2), attn_mask=mask, is_causal=mask is None,
+                enable_gqa=True)
+            return out.transpose(1, 2).reshape(q.shape)
+        return fn
+
+    cases = [(S, "float32", None) for S in TRAIN_ATTN_SEQS] + [
+        (TRAIN_ATTN_SEQS[-1], "bfloat16", None),
+        (TRAIN_ATTN_SEQS[-1], "float32", BANDED_WINDOW)]
+    for S, dtype, window in cases:
+        dt = getattr(torch, dtype)
+        g = torch.Generator(dev).manual_seed(S)
+        q, w = (torch.randn((1, S, hk, hq // hk, hd), generator=g,
+                            device=dev).to(dt) for _ in range(2))
+        k, v = (torch.randn((1, S, hk, hd), generator=g, device=dev).to(dt)
+                for _ in range(2))
+        out_b, g_b, path = _attn_grads(torch, blocked(window), q, k, v, w)
+        out_d, g_d, _ = _attn_grads(torch, dense(window), q, k, v, w)
+        row = {"S": S, "dtype": dtype, "window": window, "path": path}
+        if path != ("BandedAttentionBackward" if window else
+                    "BlockedFlashBackward"):
+            fail(f"blocked attention took {path} at S {S}, window {window}")
+        if dtype == "float32":
+            fwd_err, fwd_ok = _worst(torch, out_b, out_d, ATTN_FWD_TOL)
+            grad = [_worst(torch, a, b, ATTN_GRAD_TOL)
+                    for a, b in zip(g_b, g_d)]
+            row.update(max_abs_err_fwd=fwd_err, tol_fwd=ATTN_FWD_TOL,
+                       max_abs_err_dq_dk_dv=[e for e, _ in grad],
+                       tol_grad=ATTN_GRAD_TOL)
+            ok = fwd_ok and all(o for _, o in grad)
+        else:
+            fwd_err, ok = _worst(torch, out_b, out_d, ATTN_BF16_TOL)
+            row.update(max_abs_err_fwd=fwd_err, tol_fwd=ATTN_BF16_TOL)
+        for name, fn in (("blocked", blocked(window)), ("dense", dense(window)),
+                         ("sdpa", sdpa(window))):
+            row[f"{name}_fwd_bwd_ms"] = event_ms(
+                lambda: _attn_grads(torch, fn, q, k, v, w), reps=3,
+                warmup=1)
+        emit("train", step="attention", **row)
+        if not ok:
+            fail(f"blocked attention differs from dense attention: {row}")
+        del q, k, v, w, out_b, out_d, g_b, g_d
+
+    # -- the tiny config's step: the card against the CPU -----------------
+    runs = [tiny_step_errors(torch, dev, seed, b, tf32)
+            for tf32 in (False, True) for seed in TINY_SEEDS
+            for b in TINY_BATCHES]
+    f32 = [r for r in runs if not r["tf32"]]
+    tf32 = [r for r in runs if r["tf32"]]
+    keys = ("loss_rel_err", "grad_norm_rel_err", "moments_err", "update_err")
+    emit("train", step="tiny_step_card_vs_cpu", seeds=list(TINY_SEEDS),
+         batches=list(TINY_BATCHES), tol=TINY_STEP_TOL,
+         tol_moments=TINY_MOMENT_TOL, tol_update=TINY_UPDATE_TOL,
+         float32_worst={k: max(r[k] for r in f32) for k in keys},
+         tf32_least_moments_err=min(r["moments_err"] for r in tf32),
+         runs=runs)
+    if not all(r["ok"] for r in f32):
+        fail("the tiny train step on the card differs from the CPU's")
+    if any(r["ok"] for r in tf32):
+        fail("the tiny step's bounds pass a step with TF32 matmuls")
+
+    # -- Qwen2-7B's widths cut to 4 layers: train, fail, restore ----------
+    cut = dataclasses.replace(cfg, num_layers=TRAIN_LAYERS)
+    run = TRAIN_RUN
+    if not (run.attn_impl == "auto" and TRAIN_SEQ > run.blocked_threshold
+            and run.remat == "full" and run.compute_dtype == "bfloat16"):
+        fail(f"TRAIN_RUN is not the run this phase trains with: {run}")
+    data = DataConfig(vocab_size=cut.vocab_size, seq_len=TRAIN_SEQ,
+                      global_batch=1, seed=0)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        job = make_job(cut, run, opt=OptConfig(), data_cfg=data, ckpt_dir=d,
+                       sup_cfg=SupervisorConfig(ckpt_every=TRAIN_CKPT_EVERY,
+                                               keep=1),
+                       device=dev)
+        ck = job.ckpt
+        spent = {"snapshot": [], "write": [], "restore": []}
+        peaks = {"step": [], "restore": []}
+
+        def timed(fn, name):
+            def run_(*a, **kw):
+                if name in peaks:     # not in the writer thread
+                    torch.cuda.reset_peak_memory_stats()
+                t = time.perf_counter()
+                out_ = fn(*a, **kw)
+                spent.setdefault(name, []).append(time.perf_counter() - t)
+                if name in peaks:
+                    peaks[name].append(torch.cuda.max_memory_allocated())
+                return out_
+            return run_
+
+        for attr in ("_snapshot", "_write", "restore"):
+            setattr(ck, attr, timed(getattr(ck, attr), attr.lstrip("_")))
+        step_fn = job.step_fn
+        job.step_fn = timed(step_fn, "step")
+        t0 = time.perf_counter()
+        out = train(job, TRAIN_STEPS, rng_seed=0, resume=False,
+                    failure_plan=FailurePlan(
+                        {TRAIN_FAIL_AT: "injected_node_loss"}))
+        wall = time.perf_counter() - t0
+        job.step_fn = step_fn
+    rep = out["report"]
+    losses = out["losses"]
+    state = out["state"]
+    del out
+    # steady steps with no checkpoint written beside them: under the
+    # supervisor the writer threads of the last save share the host's
+    # cores with the loop that launches the step
+    steady = []
+    for s in range(3):
+        batch = job.data.batch_at(TRAIN_STEPS + s)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, met = job.step_fn(state, batch)
+        met["loss"].item()
+        steady.append(time.perf_counter() - t)
+    step_s = statistics.median(steady)
+    n_params = job.model.num_params()
+    tokens = data.global_batch * TRAIN_SEQ
+    # model flops: 6 per parameter and token for the matrix products (the
+    # embedding table is a lookup, not one), causal attention's score and
+    # value products (half the S x S square) forward and backward
+    mm_params = n_params - cut.vocab_size * cut.d_model
+    attn_flops = 6 * TRAIN_LAYERS * data.global_batch * TRAIN_SEQ ** 2 \
+        * hq * hd
+    model_flops = 6 * mm_params * tokens + attn_flops
+    emit("train", step="train", model="qwen2-7b", layers=TRAIN_LAYERS,
+         params=n_params, batch=data.global_batch, seq=TRAIN_SEQ,
+         steps_run=rep.steps_run, restarts=rep.restarts,
+         restored_from=rep.restored_from, failures=rep.failures,
+         losses=losses, step_times_under_ckpt_s=rep.step_times,
+         steady_step_times_s=steady, step_ms=step_s * 1e3,
+         tokens_per_s=tokens / step_s,
+         max_memory_allocated=max(peaks["step"] + peaks["restore"]),
+         step_peaks=peaks["step"], restore_peaks=peaks["restore"],
+         model_flops_per_step=model_flops,
+         bf16_peak_share=model_flops / step_s / PEAK_BF16_FLOPS,
+         ckpt_bytes=sum(t.numel() * t.element_size()
+                        for t in _leaves(state)),
+         ckpt_snapshot_s=spent["snapshot"], ckpt_write_s=spent["write"],
+         ckpt_restore_s=spent["restore"], wall_s=wall)
+    if rep.restarts != 1 or rep.restored_from != [TRAIN_FAIL_AT]:
+        fail(f"the run did not restart once from step {TRAIN_FAIL_AT}: "
+             f"{rep.restarts} restarts from {rep.restored_from}")
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x)
+                                             for x in losses):
+        fail(f"losses of the run: {losses}")
+    if len(spent["restore"]) != 1 or len(spent["write"]) != \
+            TRAIN_STEPS // TRAIN_CKPT_EVERY:
+        fail(f"checkpoints written {len(spent['write'])} times, restored "
+             f"{len(spent['restore'])}")
+
+    # where a step's device time goes (the step launches none of the
+    # port's counted kernels, so any trace holds every counted launch)
+    zero_counters()
+    batch = job.data.batch_at(TRAIN_STEPS + 3)
+    twall, busy, top = device_time(torch, lambda: job.step_fn(state, batch))
+    if any(counters().values()):
+        fail(f"a train step launched counted kernels: {counters()}")
+    emit("train", step="trace_step", wall_s=twall, kernel_s=busy,
+         busy_share=busy / twall, top_kernels=top[:6])
+
+    # -- the profile of two steady steps, replayed on the kernel backend --
+    hostcal = calibrate(device="cpu")
+
+    def two_steps():
+        nonlocal state
+        for s in (TRAIN_STEPS + 4, TRAIN_STEPS + 5):
+            state, met = job.step_fn(state, job.data.batch_at(s))
+            met["loss"].item()
+
+    prof = RuntimeProfiler(sample_rate=20).profile_callable(
+        two_steps, command="train-qwen2-7b", tags={
+            "layers": str(TRAIN_LAYERS), "seq": str(TRAIN_SEQ)},
+        flops_per_cpu_s=hostcal.flops_per_s)
+    del state
+    with tempfile.TemporaryDirectory() as d:
+        store = ProfileStore(d)
+        store.add(prof)
+        loaded = store.latest(prof.command, prof.tags)
+    if loaded is None or loaded.totals != prof.totals:
+        fail("the train profile did not round-trip through the store")
+    em = Emulator(calib=calib, backend="cuda")
+    want = planned_counts(em, loaded)
+    zero_counters()
+    rep = em.emulate(loaded)
+    torch.cuda.synchronize()
+    got = counters()
+    emit("train", step="replay", backend="cuda", mode=rep.mode,
+         n_samples=rep.n_samples, n_dispatches=rep.n_dispatches,
+         ttc_s=rep.ttc_s, profiled_wall_s=prof.meta["wall_s"],
+         predicted_ttc_s=predict(loaded, H100_SXM).ttc_max,
+         flops=loaded.totals.flops, counters=got)
+    if not same_amounts(rep.consumed, loaded.totals):
+        fail(f"train replay consumed {rep.consumed} != {loaded.totals}")
+    if got != want or rep.mode != "fused" or not got["segment"]:
+        fail(f"train replay ({rep.mode}) counted {got}, want {want}")
+
+
 def compute_legs(table) -> int:
     """Rows of a compiled table that burn: the kernel backend launches one
     burn for each."""
@@ -2187,6 +2559,7 @@ def main() -> None:
     fleet_profiles, fleet_refs = phase_fleet(torch, calib, per_iter_ms)
     phase_service(torch, calib, fleet_profiles, fleet_refs)
     phase_serve(torch, np, rows)
+    phase_train(torch, np, calib)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for row in rows.values():

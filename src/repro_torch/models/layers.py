@@ -1,15 +1,22 @@
 """Shared transformer layers: norms, rotary embeddings, attention, MLP.
 
-Prefill attention has two implementations here (``RunConfig.attn_impl``):
-  * ``full`` — dense softmax attention in PyTorch ops; O(S²) memory.
-  * ``cuda`` — the hand-written Hopper kernel
-               (``repro_torch.kernels.flash_attention``), the counterpart of
-               the JAX package's ``pallas``.
-``auto`` keeps the JAX package's rule (``blocked`` above the threshold);
-``blocked`` is not ported yet (``configs.run.BLOCKED_TODO``).
+Attention has three implementations here (``RunConfig.attn_impl``):
+  * ``full``    — dense softmax attention in PyTorch ops; O(S²) memory.
+  * ``blocked`` — flash-style attention in PyTorch ops over (q, kv) block
+                  pairs, with hand-written backward passes
+                  (``BlockedFlash``, ``BandedAttention``); O(S·hd) saved
+                  for the backward.  Plain PyTorch, as the JAX package's
+                  is plain XLA: no Pallas kernel stands behind it.
+  * ``cuda``    — the hand-written Hopper kernel
+                  (``repro_torch.kernels.flash_attention``), the
+                  counterpart of the JAX package's ``pallas``.
+``auto`` keeps the JAX package's rule (``blocked`` above the threshold).
 
 All softmax math is f32 regardless of activation dtype: logits come from
-inputs upcast to f32, the counterpart of ``preferred_element_type=f32``.
+inputs upcast to f32, the counterpart of ``preferred_element_type=f32``
+(a bf16 product of bf16 inputs is exact in f32, so the upcast gives the
+same logits).  Products the JAX package leaves in the input dtype
+(probabilities times values) stay in it here too.
 The JAX package's ``shard(...)`` constraints are dropped: without a mesh
 they are no-ops.
 """
@@ -21,7 +28,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.configs.run import BLOCKED_TODO
 from repro_torch.models.params import PDef
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
@@ -90,6 +96,12 @@ def _softcap(logits, cap: Optional[float]):
     return cap * torch.tanh(logits / cap)
 
 
+def _bias(ok):
+    """Additive f32 mask: 0 where ``ok``, ``NEG_INF`` elsewhere."""
+    return torch.zeros(ok.shape, dtype=torch.float32,
+                       device=ok.device).masked_fill_(~ok, NEG_INF)
+
+
 def _mask_bias(q_pos, k_pos, *, causal: bool, window: Optional[int],
                local_flag=None, kv_valid_len=None):
     """Additive f32 mask bias of shape broadcastable to [.., Sq, Sk].
@@ -111,8 +123,7 @@ def _mask_bias(q_pos, k_pos, *, causal: bool, window: Optional[int],
         ok = ok & win_ok
     if kv_valid_len is not None:
         ok = ok & (kp < kv_valid_len)
-    return torch.zeros(ok.shape, dtype=torch.float32,
-                       device=ok.device).masked_fill_(~ok, NEG_INF)
+    return _bias(ok)
 
 
 def attend_full(q, k, v, *, q_pos, k_pos, causal, window, softcap,
@@ -133,6 +144,243 @@ def attend_full(q, k, v, *, q_pos, k_pos, causal, window, softcap,
     return torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
 
 
+_HUGE_WINDOW = 1.0e9
+
+
+def _win_arr(window, local_flag, device) -> torch.Tensor:
+    """Fold (static window, per-layer bool flag) into one f32 scalar."""
+    huge = torch.tensor(_HUGE_WINDOW, dtype=torch.float32, device=device)
+    if window is None:
+        return huge
+    w = torch.tensor(float(window), dtype=torch.float32, device=device)
+    if local_flag is None:
+        return w
+    return torch.where(torch.as_tensor(local_flag, device=device), w, huge)
+
+
+def _block_bias(qp, kp, win_arr, causal: bool):
+    """Additive f32 mask [bq, bkv] from position vectors and the window."""
+    d = qp[:, None].float() - kp[None, :].float()
+    ok = d < win_arr
+    if causal:
+        ok = ok & (d >= 0)
+    return _bias(ok)
+
+
+def _scores(qb, kb, scale):
+    """f32 logits [B,Hk,G,bq,bkv] of q [B,bq,Hk,G,hd], k [B,bkv,Hk,hd]."""
+    return torch.einsum("bqhgd,bkhd->bhgqk", qb.float(), kb.float()) * scale
+
+
+def _capped(s_raw, softcap):
+    """(softcapped logits, tanh term for the backward or None)."""
+    if softcap is None:
+        return s_raw, None
+    t = torch.tanh(s_raw / softcap)
+    return softcap * t, t
+
+
+def _grads_of_block(qb, kb, vb, dob, Lb, db, bias, scale, softcap):
+    """One (q, kv) block pair of the backward, all in f32: (dq block,
+    dk and dv contributions of the pair)."""
+    s, t = _capped(_scores(qb, kb, scale), softcap)
+    p = torch.exp(s + bias - Lb[..., None])              # [B,Hk,G,bq,bkv]
+    do32 = dob.float()
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, do32)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", do32, vb.float())
+    ds = p * (dp - db[..., None])                        # wrt softcapped s
+    if t is not None:
+        ds = ds * (1.0 - t * t)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kb.float()) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qb.float()) * scale
+    return dq, dk, dv
+
+
+def _delta(do, out):
+    return torch.einsum("bqhgd,bqhgd->bhgq", do.float(), out.float())
+
+
+class BlockedFlash(torch.autograd.Function):
+    """FlashAttention-2 in PyTorch ops with a hand-written backward (the
+    JAX package's ``_flash_fn``).
+
+    Forward: for each q block, an online softmax over the kv blocks; saves
+    (q, k, v, out, L = m + log l), O(S·hd), never the per-block f32
+    accumulators (autograd through the loop would keep ``acc`` at every
+    inner step: O(nk·S·hd) f32 a layer).  Backward: recomputes p per (kv,
+    q) block pair; dk/dv per kv block, dq accumulated in f32.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, win_arr, causal, softcap, block_q, block_kv):
+        B, Sq, Hk, G, hd = q.shape
+        Sk = k.shape[1]
+        scale = hd ** -0.5
+        qp = torch.arange(Sq, device=q.device)
+        kp = torch.arange(Sk, device=q.device)
+        out = torch.empty_like(q, dtype=v.dtype)
+        L = torch.empty((B, Hk, G, Sq), dtype=torch.float32, device=q.device)
+        for q0 in range(0, Sq, block_q):
+            qs = slice(q0, q0 + block_q)
+            qb = q[:, qs]
+            m = torch.full((B, Hk, G, block_q), NEG_INF, dtype=torch.float32,
+                           device=q.device)
+            l = torch.zeros_like(m)
+            acc = torch.zeros((B, Hk, G, block_q, hd), dtype=torch.float32,
+                              device=q.device)
+            for k0 in range(0, Sk, block_kv):
+                ks = slice(k0, k0 + block_kv)
+                s, _ = _capped(_scores(qb, k[:, ks], scale), softcap)
+                s = s + _block_bias(qp[qs], kp[ks], win_arr, causal)
+                m_new = torch.maximum(m, s.amax(dim=-1))
+                alpha = torch.exp(m - m_new)
+                p = torch.exp(s - m_new[..., None])
+                l = l * alpha + p.sum(dim=-1)
+                acc = acc * alpha[..., None] + torch.einsum(
+                    "bhgqk,bkhd->bhgqd", p.to(v.dtype), v[:, ks]).float()
+                m = m_new
+            lc = torch.clamp(l, min=1e-30)
+            out[:, qs] = (acc / lc[..., None]).permute(0, 3, 1, 2, 4)
+            L[..., qs] = m + torch.log(lc)
+        ctx.save_for_backward(q, k, v, out, L, win_arr)
+        ctx.args = (causal, softcap, block_q, block_kv)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, L, win_arr = ctx.saved_tensors
+        causal, softcap, block_q, block_kv = ctx.args
+        Sq, hd = q.shape[1], q.shape[-1]
+        Sk = k.shape[1]
+        scale = hd ** -0.5
+        qp = torch.arange(Sq, device=q.device)
+        kp = torch.arange(Sk, device=q.device)
+        delta = _delta(do, out)                              # [B,Hk,G,Sq]
+        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+        dv = torch.empty_like(dk)
+        for k0 in range(0, Sk, block_kv):
+            ks = slice(k0, k0 + block_kv)
+            kb, vb = k[:, ks], v[:, ks]
+            dkj = torch.zeros(kb.shape, dtype=torch.float32, device=q.device)
+            dvj = torch.zeros_like(dkj)
+            dqj = torch.empty_like(dq)
+            for q0 in range(0, Sq, block_q):
+                qs = slice(q0, q0 + block_q)
+                dqb, dkb, dvb = _grads_of_block(
+                    q[:, qs], kb, vb, do[:, qs], L[..., qs], delta[..., qs],
+                    _block_bias(qp[qs], kp[ks], win_arr, causal), scale,
+                    softcap)
+                dvj = dvj + dvb
+                dkj = dkj + dkb
+                dqj[:, qs] = dqb
+            dq = dq + dqj                # the JAX package's order of sums
+            dk[:, ks] = dkj
+            dv[:, ks] = dvj
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                None, None, None, None, None)
+
+
+class BandedAttention(torch.autograd.Function):
+    """Banded causal attention for a static sliding window, with a
+    hand-written backward (the JAX package's ``_banded_fn``).
+
+    Each query block of ``block_q`` rows attends only its ``band``-wide kv
+    slice (band >= window + block_q - 1, clamped into range): O(S·band)
+    work and memory instead of O(S²).  Neighbouring q blocks' slices
+    overlap, so the backward adds each block's dk/dv into its slice.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, softcap, block_q, band):
+        B, Sq, Hk, G, hd = q.shape
+        Sk = k.shape[1]
+        scale = hd ** -0.5
+        out = torch.empty_like(q, dtype=v.dtype)
+        L = torch.empty((B, Hk, G, Sq), dtype=torch.float32, device=q.device)
+        for i, q0 in enumerate(range(0, Sq, block_q)):
+            qs = slice(q0, q0 + block_q)
+            kst = _band_start(i, block_q, band, Sk)
+            ks = slice(kst, kst + band)
+            s, _ = _capped(_scores(q[:, qs], k[:, ks], scale), softcap)
+            s = s + _band_bias(q0, kst, block_q, band, window, q.device)
+            m = s.amax(dim=-1)
+            p = torch.exp(s - m[..., None])
+            l = p.sum(dim=-1)
+            lc = torch.clamp(l, min=1e-30)
+            o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v[:, ks])
+            out[:, qs] = o / lc.permute(0, 3, 1, 2)[..., None]
+            L[..., qs] = m + torch.log(lc)
+        ctx.save_for_backward(q, k, v, out, L)
+        ctx.args = (window, softcap, block_q, band)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, L = ctx.saved_tensors
+        window, softcap, block_q, band = ctx.args
+        Sq, hd = q.shape[1], q.shape[-1]
+        Sk = k.shape[1]
+        scale = hd ** -0.5
+        delta = _delta(do, out)
+        dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+        dv = torch.zeros_like(dk)
+        for i, q0 in enumerate(range(0, Sq, block_q)):
+            qs = slice(q0, q0 + block_q)
+            kst = _band_start(i, block_q, band, Sk)
+            ks = slice(kst, kst + band)
+            dqb, dkb, dvb = _grads_of_block(
+                q[:, qs], k[:, ks], v[:, ks], do[:, qs], L[..., qs],
+                delta[..., qs],
+                _band_bias(q0, kst, block_q, band, window, q.device), scale,
+                softcap)
+            dq[:, qs] = dqb
+            dk[:, ks] += dkb             # slices overlap: add, never assign
+            dv[:, ks] += dvb
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                None, None, None, None)
+
+
+def _band_start(i: int, block_q: int, band: int, Sk: int) -> int:
+    return min(max((i + 1) * block_q - band, 0), Sk - band)
+
+
+def _band_bias(q0: int, kstart: int, bq: int, bd: int, window: int, device):
+    qp = q0 + torch.arange(bq, device=device)[:, None]
+    kp = kstart + torch.arange(bd, device=device)[None, :]
+    return _bias((kp <= qp) & (qp - kp < window))
+
+
+def attend_blocked(q, k, v, *, causal, window, softcap, block_q: int = 512,
+                   block_kv: int = 1024, local_flag=None, kv_valid_len=None):
+    """Flash-style attention in PyTorch ops (hand-written backward passes,
+    O(S·hd) saved).  q:[B,Sq,Hk,G,hd]; k,v:[B,Sk,Hk,hd]; positions are
+    token order.  ``kv_valid_len`` falls back to dense attention; a static
+    causal window over a square score matrix takes the banded path when the
+    band is shorter than the keys."""
+    B, Sq, Hk, G, hd = q.shape
+    Sk = k.shape[1]
+    block_q = min(block_q, Sq)
+    block_kv = min(block_kv, Sk)
+    if Sq % block_q or Sk % block_kv:
+        raise ValueError(f"blocked attention needs whole blocks: Sq {Sq}, "
+                         f"Sk {Sk}, block_q {block_q}, block_kv {block_kv}")
+    if kv_valid_len is not None:
+        return attend_full(q, k, v, q_pos=torch.arange(Sq, device=q.device),
+                           k_pos=torch.arange(Sk, device=q.device),
+                           causal=causal, window=window, softcap=softcap,
+                           local_flag=local_flag, kv_valid_len=kv_valid_len)
+    if causal and window is not None and local_flag is None and Sq == Sk:
+        nb = -(-(window + block_q - 1) // block_kv)
+        band = nb * block_kv
+        if band < Sk:
+            return BandedAttention.apply(q, k, v, int(window), softcap,
+                                         block_q, band)
+    return BlockedFlash.apply(q, k, v, _win_arr(window, local_flag, q.device),
+                              bool(causal), softcap, block_q, block_kv)
+
+
 def attend_decode(q, k_cache, v_cache, *, cur_pos, window, softcap,
                   local_flag=None):
     """Single-token decode: q:[B,1,Hk,G,hd]; caches [B,T,Hk,hd]; cur_pos [B]."""
@@ -149,9 +397,7 @@ def attend_decode(q, k_cache, v_cache, *, cur_pos, window, softcap,
         if local_flag is not None:
             win_ok = win_ok | ~torch.as_tensor(local_flag, device=q.device)
         ok = ok & win_ok
-    bias = torch.zeros(ok.shape, dtype=torch.float32,
-                       device=q.device).masked_fill_(~ok, NEG_INF)
-    logits = logits + bias[:, None, None, None, :]
+    logits = logits + _bias(ok)[:, None, None, None, :]
     probs = torch.softmax(logits, dim=-1).to(v_cache.dtype)
     return torch.einsum("bhgqk,bkhd->bqhgd", probs, v_cache)
 
@@ -253,7 +499,10 @@ def attention(p, x, *, cfg: ModelConfig, positions, is_local=False,
                 softcap=a.logit_softcap,
                 block_q=run.block_q, block_kv=run.block_kv)
         elif impl == "blocked":
-            raise NotImplementedError(BLOCKED_TODO)
+            out = attend_blocked(qg, k, v, causal=causal, window=window,
+                                 local_flag=local_flag,
+                                 softcap=a.logit_softcap,
+                                 block_q=run.block_q, block_kv=run.block_kv)
         else:
             raise ValueError(f"unknown attention impl {impl!r}")
         new_cache = None

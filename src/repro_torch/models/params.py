@@ -3,7 +3,8 @@
 A model is described once as a nested dict of ``PDef`` leaves (shape, logical
 axes, initializer), as in the JAX package.  From that single source the port
 derives materialized parameters (``init_params``) and the parameter count;
-``from_numpy`` carries the JAX package's parameters across.  The logical
+``from_numpy`` carries the JAX package's parameters across, and
+``train_state_from_numpy`` its train state.  The logical
 axes are kept for the sharding slice (``spec_tree`` and ``abstract_params``
 are not ported yet: ROADMAP.md queue 1, item 7h).
 """
@@ -44,11 +45,14 @@ def _tree_map(tree, fn, path=()):
     raise TypeError(f"bad pdef tree node at {path}: {type(tree)}")
 
 
-def map_tensors(tree, fn):
-    """Apply ``fn`` to every leaf of a nested dict of tensors or arrays."""
+def map_tensors(tree, fn, *others):
+    """Apply ``fn`` to every leaf of a nested dict of tensors or arrays;
+    with ``others`` (trees of the same keys), to every leaf and its
+    counterparts: ``fn(leaf, *other_leaves)``."""
     if isinstance(tree, dict):
-        return {k: map_tensors(v, fn) for k, v in tree.items()}
-    return fn(tree)
+        return {k: map_tensors(v, fn, *(o[k] for o in others))
+                for k, v in tree.items()}
+    return fn(tree, *others)
 
 
 def _materialize(gen: torch.Generator, pd: PDef, dtype, device):
@@ -104,6 +108,19 @@ def from_numpy(tree, dtype=None, device: DeviceLike = None):
         return t.to(dev)
 
     return map_tensors(tree, leaf)
+
+
+def train_state_from_numpy(state, device: DeviceLike = None):
+    """The JAX package's train state as numpy arrays (``{"params", "opt":
+    {"mu", "nu", "step"}}``, and ``"ef_error"`` under gradient
+    compression) as the port's, on ``device`` (``"cuda"`` unless named):
+    the same keys, shapes and dtypes; ``step`` a 0-d int32 tensor."""
+    opt = state.get("opt", {})
+    missing = sorted({"params", "opt"} - set(state)) + sorted(
+        {"mu", "nu", "step"} - set(opt))
+    if missing:
+        raise ValueError(f"not a train state: it lacks {missing}")
+    return from_numpy(state, device=device)
 
 
 def stack_pdefs(tree, n: int, axis_name: Optional[str] = "layers"):

@@ -6,15 +6,21 @@ indexing views (never copies) of the stacked tensors.  The per-layer
 locality flag comes from ``layer_plan`` as a Python bool, so gemma2's local
 layers get a static window.  KV caches are stacked with a leading layer dim
 too, ``{"attn": {"k", "v": [L,B,T,Hk,hd], "pos": [L,B]}}``, and each layer's
-new entries are written into them in place.
+new entries are written into them in place.  The activation remat policy
+(``RunConfig.remat``) wraps each layer in ``torch.utils.checkpoint``, as the
+JAX package wraps its scan body in ``jax.checkpoint``.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.run import RunConfig
@@ -43,6 +49,10 @@ def layer_flags(cfg: ModelConfig) -> np.ndarray:
         glob = {0, L // 2, L - 1}
         return np.array([i not in glob for i in range(L)])
     raise ValueError(pat)
+
+
+def uses_uniform_global(cfg: ModelConfig) -> bool:
+    return not layer_flags(cfg).any()
 
 
 # ---------------------------------------------------------------------------
@@ -79,19 +89,32 @@ def def_lm(cfg: ModelConfig) -> Dict[str, Any]:
 # Cache
 # ---------------------------------------------------------------------------
 
+def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                    device: DeviceLike = None):
+    """One layer's cache {k, v: [B,T,Hk,hd], pos: [B]} on ``device``
+    (``"cuda"`` unless named)."""
+    dev = resolve(device)
+    hk, hd = cfg.num_kv_heads, cfg.head_dim
+    return {
+        "k": torch.zeros((batch, max_len, hk, hd), dtype=dtype, device=dev),
+        "v": torch.zeros((batch, max_len, hk, hd), dtype=dtype, device=dev),
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
+    }
+
+
+def _stack_layers(per_layer, L: int):
+    """Each leaf repeated along a new leading layer dim, as a copy: the
+    layers write their caches in place, so they must not share memory."""
+    return map_tensors(
+        per_layer, lambda x: x[None].expand((L,) + tuple(x.shape)).clone())
+
+
 def init_cache(cfg: ModelConfig, run: RunConfig, batch: int, max_len: int,
                device: DeviceLike = None):
     """Stacked (leading layer dim) cache: {"attn": {k, v, pos}} on
     ``device`` (``"cuda"`` unless named)."""
-    dev = resolve(device)
-    L, hk, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
-    return {"attn": {
-        "k": torch.zeros((L, batch, max_len, hk, hd), dtype=run.kvdtype,
-                         device=dev),
-        "v": torch.zeros((L, batch, max_len, hk, hd), dtype=run.kvdtype,
-                         device=dev),
-        "pos": torch.zeros((L, batch), dtype=torch.int32, device=dev),
-    }}
+    per_layer = init_attn_cache(cfg, batch, max_len, run.kvdtype, device)
+    return {"attn": _stack_layers(per_layer, cfg.num_layers)}
 
 
 # ---------------------------------------------------------------------------
@@ -122,11 +145,36 @@ def block_apply(pl, x, *, cfg: ModelConfig, run: RunConfig, positions,
     return x, new_cache, {}
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the outputs of matrix products with no batch dimension (the
+    JAX package's ``dots_with_no_batch_dims_saveable``); recompute the
+    rest."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_wrap(fn, run: RunConfig):
+    """``fn`` under the run's remat policy.  Only while autograd records:
+    a forward with no backward (serving) has nothing to recompute."""
+    if run.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if run.remat == "dots":
+        ctx = functools.partial(create_selective_checkpoint_contexts,
+                                _dots_policy)
+        return functools.partial(checkpoint, fn, use_reentrant=False,
+                                 context_fn=ctx)
+    return functools.partial(checkpoint, fn, use_reentrant=False)
+
+
 def embed_tokens(params, batch, cfg: ModelConfig, run: RunConfig):
     if "embeds" in batch:                # vlm / audio frontend stubs
         x = batch["embeds"].to(run.cdtype)
     else:
-        x = params["embed"][batch["tokens"].long()].to(run.cdtype)
+        # F.embedding, not indexing: its backward sums repeated tokens in a
+        # fixed order (indexing's scatter-add does not on several threads)
+        x = F.embedding(batch["tokens"].long(), params["embed"]).to(
+            run.cdtype)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=run.cdtype,
                              device=x.device)
@@ -206,14 +254,17 @@ def forward_stack(params, batch, *, cfg: ModelConfig, run: RunConfig,
     aux_acc: Dict[str, Any] = {}
     for li, flag in _plan_layers(cfg):
         pl = map_tensors(layers, lambda p: p[li])
-        cl = map_tensors(cache, lambda c: c[li]) \
-            if cache is not None else None
-        x, nc, aux = block_fn(pl, x, positions=positions, local_flag=flag,
-                              cache_layer=cl, decode=decode)
+        cl = None if cache is None else map_tensors(cache, lambda c: c[li])
+        # the flag is bound as a default: a remat recompute calls the body
+        # after the loop has moved on
+        x, nc, aux = _remat_wrap(
+            lambda c, p_, cl_, f=flag: block_fn(
+                p_, c, positions=positions, local_flag=f, cache_layer=cl_,
+                decode=decode), run)(x, pl, cl)
+        if nc is not None:
+            _cache_set(cl, nc)
         for k, v in aux.items():
             aux_acc[k] = aux_acc.get(k, 0.0) + v.sum()
-        if cache is not None and nc is not None:
-            _cache_set(cl, nc)
 
     x = rmsnorm(params["ln_final"], x, cfg.norm_eps)
     return x, cache, aux_acc

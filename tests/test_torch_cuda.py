@@ -4,6 +4,7 @@ Marked ``cuda``: they skip where there is no CUDA device.  This file
 imports no JAX, so it runs on a machine that has the card and PyTorch
 alone: ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 """
+import os
 import sys
 import threading
 
@@ -23,9 +24,14 @@ from repro_torch.kernels.memory_atom import kernel as mk, ops as mops
 from repro_torch.kernels.memory_atom import ref as mref
 from repro_torch.kernels.segment import kernel as sk, ref as sref
 from repro_torch.launch.mesh import make_mesh
+from repro_torch.models.layers import attend_blocked, attend_full
 from repro_torch.models.model_zoo import build_model
 from repro_torch.scenarios import generate
 from repro_torch.serve.engine import Engine, Request
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+import chip_smoke  # noqa: E402  (the repository's root holds it)
 
 pytestmark = pytest.mark.cuda
 
@@ -524,3 +530,50 @@ def test_process_fleet_on_the_card_replays_segment_kernels(dev):
     assert [(r.consumed, r.n_samples, r.mode, r.n_dispatches)
             for r in rep.reports] == \
         [(r.consumed, r.n_samples, "fused", r.n_dispatches) for r in want]
+
+
+@pytest.mark.parametrize("dtype,window", [(torch.float32, None),
+                                          (torch.float32, 128),
+                                          (torch.bfloat16, None)])
+def test_blocked_attention_matches_dense_on_the_card(dev, dtype, window):
+    """Both blocked paths (flash; banded for the window) against dense
+    attention at Qwen2-7B's heads: float32 forward 2e-5 and dq/dk/dv 3e-5,
+    bf16 forward 2e-2 (the JAX package's tolerances)."""
+    S = 1024
+    g = torch.Generator(dev).manual_seed(0)
+    q, w = (torch.randn((1, S, 4, 7, 128), generator=g, device=dev)
+            .to(dtype) for _ in range(2))
+    k, v = (torch.randn((1, S, 4, 128), generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    pos = torch.arange(S, device=dev)
+    outs, grads = [], []
+    for fn in (lambda *a: attend_blocked(*a, causal=True, window=window,
+                                         softcap=None, block_q=128,
+                                         block_kv=256),
+               lambda *a: attend_full(*a, q_pos=pos, k_pos=pos, causal=True,
+                                      window=window, softcap=None)):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves)
+        outs.append(out.detach().float())
+        grads.append([x.float() for x in torch.autograd.grad(out, leaves,
+                                                             w)])
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(outs[0], outs[1], atol=2e-2, rtol=2e-2)
+        return
+    torch.testing.assert_close(outs[0], outs[1], atol=2e-5, rtol=2e-5)
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=3e-5, rtol=3e-5)
+
+
+@pytest.mark.parametrize("seed,batch_step", [(0, 0), (1, 5)])
+def test_tiny_train_step_on_the_card_matches_the_cpu(dev, seed, batch_step):
+    """The tiny config of tests/test_train_loop.py: one step on the card
+    against the same step on the CPU, float32 with TF32 off, within the
+    bounds of chip_smoke.py's train phase (its ``TINY_*_TOL``), which runs
+    the same helper over more seeds; the same step with TF32 matmuls on
+    the card falls outside them."""
+    errs = chip_smoke.tiny_step_errors(torch, dev, seed, batch_step)
+    assert errs["ok"], errs
+    planted = chip_smoke.tiny_step_errors(torch, dev, seed, batch_step,
+                                          tf32=True)
+    assert not planted["ok"], planted

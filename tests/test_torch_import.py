@@ -72,6 +72,13 @@ SLICE = [
     "repro_torch.models.model_zoo",
     "repro_torch.serve", "repro_torch.serve.step",
     "repro_torch.serve.engine",
+    "repro_torch.train", "repro_torch.train.loss", "repro_torch.train.step",
+    "repro_torch.train.loop",
+    "repro_torch.optim", "repro_torch.optim.adamw",
+    "repro_torch.optim.compression",
+    "repro_torch.data", "repro_torch.data.pipeline",
+    "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
+    "repro_torch.runtime", "repro_torch.runtime.supervisor",
 ]
 
 _CHILD = """
@@ -112,7 +119,8 @@ def test_port_sources_name_no_jax_or_repro():
     assert len(files) > 20
     # the scan reaches every subpackage, this slice's included
     for sub in ("fleet", "obs", "service", "scenarios", "transport",
-                "launch", "collective"):
+                "launch", "collective", "train", "optim", "data",
+                "checkpoint", "runtime"):
         assert any(os.sep + sub + os.sep in f for f in files), sub
     for path in files:
         with open(path) as f:
@@ -120,7 +128,7 @@ def test_port_sources_name_no_jax_or_repro():
         assert not hits, f"{path}: {hits}"
 
 
-def test_default_device_raises_without_cuda():
+def test_default_device_raises_without_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")
     from repro_torch.configs import get_config, reduced_config
@@ -131,8 +139,15 @@ def test_default_device_raises_without_cuda():
     from repro_torch.models.model_zoo import build_model
     from repro_torch.models.params import from_numpy
     from repro_torch.serve.engine import Engine
+    from repro_torch.checkpoint.ckpt import CheckpointManager
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.params import train_state_from_numpy
+    from repro_torch.train.loop import make_job
     cal = HostCalibration(1e9, 1e9, 1e8, 1e8)
     model = build_model(reduced_config(get_config("qwen2-7b")), SERVE_RUN)
+    ckpt_dir = str(tmp_path / "ck")
+    ckpt = CheckpointManager(ckpt_dir)
+    ckpt.save(1, {"w": torch.zeros(2)})
     for make in (lambda: model.init(torch.Generator()),
                  lambda: model.init_cache(1, 8),
                  lambda: from_numpy({}),
@@ -143,6 +158,11 @@ def test_default_device_raises_without_cuda():
                  lambda: ComputeAtom(cal),
                  lambda: MemoryAtom(cal),
                  lambda: make_mesh((2,), ("model",)),
+                 lambda: SyntheticLM(DataConfig(8, 4, 1)),
+                 lambda: make_job(model.cfg, SERVE_RUN, ckpt_dir=ckpt_dir),
+                 lambda: train_state_from_numpy(
+                     {"params": {}, "opt": {"mu": {}, "nu": {}, "step": 0}}),
+                 lambda: ckpt.restore(),
                  lambda: calibrate()):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()

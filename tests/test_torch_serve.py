@@ -88,10 +88,17 @@ def test_run_config_names_the_ports_attention_impls():
     assert SERVE_RUN.pdtype == torch.bfloat16
     fields = {f.name for f in dataclasses.fields(RunConfig)}
     assert fields == {"param_dtype", "compute_dtype", "cache_dtype",
-                      "attn_impl", "block_q", "block_kv", "blocked_threshold"}
+                      "attn_impl", "block_q", "block_kv", "blocked_threshold",
+                      "remat", "loss_chunk", "grad_compression",
+                      "microbatches"}
     assert fields <= {f.name for f in dataclasses.fields(JRun)}
     assert TRAIN_RUN.pdtype == torch.float32
     assert TRAIN_RUN.cdtype == TRAIN_RUN.kvdtype == torch.bfloat16
+    for name in fields:          # the JAX package's defaults
+        for ours, theirs in ((TRAIN_RUN, JRun()),
+                             (SERVE_RUN, JRun(param_dtype="bfloat16",
+                                              remat="none"))):
+            assert getattr(ours, name) == getattr(theirs, name), name
     for impl in ("auto", "full", "blocked", "cuda"):
         assert dataclasses.replace(SERVE_RUN, attn_impl=impl).attn_impl == \
             impl
@@ -312,9 +319,34 @@ def test_attention_impls_agree_within_the_port():
 
 
 def test_blocked_and_auto_above_the_threshold_name_the_roadmap_item():
-    for run in (RunConfig(attn_impl="blocked", **F32),
-                RunConfig(attn_impl="auto", blocked_threshold=8, **F32)):
-        tm = build_model(reduced_config(get_config("qwen2-7b")), run)
-        tp = tm.init(torch.Generator().manual_seed(0), device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tm.forward(tp, {"tokens": torch.zeros((1, 9), dtype=torch.int32)})
+    """``"blocked"``, and ``"auto"`` above the threshold, serve as the JAX
+    package's ``"blocked"`` does: the same forward and greedy tokens (the
+    roadmap item, 7b, is done)."""
+    for arch in ARCHS:
+        _blocked_serves_as_the_reference(arch)
+
+
+def _blocked_serves_as_the_reference(arch):
+    blocks = dict(block_q=8, block_kv=8)
+    jm = j_build(j_reduced(j_get_config(arch)),
+                 JRun(attn_impl="blocked", remat="none", **blocks, **F32))
+    jp = jm.init(jax.random.key(0))
+    tp = from_numpy(jax.tree.map(np.asarray, jp), torch.float32, "cpu")
+    toks = tokens(2, 16, seed=9)
+    j_hidden, _, _ = jm.forward(jp, {"tokens": jnp.asarray(toks)})
+    rng = np.random.default_rng(10)
+    spec = [(list(rng.integers(0, 256, n)), m)
+            for n, m in ((16, 5), (9, 4), (12, 6), (5, 3), (16, 4))]
+    j_reqs = JEngine(jm, jp, batch_slots=4, max_len=32).serve(
+        [JRequest(prompt=p, max_new_tokens=m) for p, m in spec])
+    for run in (RunConfig(attn_impl="blocked", **blocks, **F32),
+                RunConfig(attn_impl="auto", blocked_threshold=8, **blocks,
+                          **F32)):
+        tm = build_model(reduced_config(get_config(arch)), run)
+        t_hidden, _, _ = tm.forward(tp, {"tokens": torch.from_numpy(toks)})
+        close(t_hidden, j_hidden)
+        t_reqs = Engine(tm, tp, batch_slots=4, max_len=32,
+                        device="cpu").serve(
+            [Request(prompt=p, max_new_tokens=m) for p, m in spec])
+        assert [r.out_tokens for r in t_reqs] == \
+            [r.out_tokens for r in j_reqs]
