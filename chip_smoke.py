@@ -106,6 +106,22 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
              the share of the bf16 peak, checkpoint seconds, a traced
              step's busy share); the profile of two steps replayed on the
              ``"cuda"`` backend in one segment launch
+  families   the other model families at their published widths:
+             Llama-4-Scout (MoE, cut to 8 layers), Moonlight-16B-A3B
+             (MoE), Qwen2-VL-2B (vision embeds with M-RoPE), Mamba-2-780M,
+             Hymba-1.5B (prompts past its 2048-token window) and
+             SeamlessM4T-medium (encoder-decoder).  Each: a float32 depth
+             cut, the flash kernel against dense attention (final hidden
+             states within 1e-4, identical greedy tokens); then bf16
+             weights made on the card from a seed, its traffic under the
+             ``RuntimeProfiler`` (prefill and decode times, tokens/s, peak
+             memory, the MoE drop fraction, flash launches = attention
+             layers that route to it x waves), a trace of a prefill and
+             decode steps that holds every flash launch (busy share), and
+             the profile replayed fused on the ``"cuda"`` emulator backend
+             with the table's device counts.  Mamba-2's SSD scan against
+             its recurrent oracle at its heads and prefill then decode
+             against one forward; one MoE training step
 
 Then one ``{"kernels": [...]}`` line and, last, one ``{"ok": true, ...}``
 line.  Any failed check exits non-zero before the last line.  Without a
@@ -262,6 +278,48 @@ TINY_SEEDS, TINY_BATCHES = (0, 1, 2, 3), (0, 5)
 # would put two (45.2 GiB) on the disk at once
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_STEPS, TRAIN_FAIL_AT = 4, 4096, 3, 2
 TRAIN_CKPT_EVERY = 2
+# the other families at their published widths: (config, layers on the
+# card or None for all, traffic).  Llama-4-Scout's 48 layers need ~216 GB
+# of bf16 weights: 8 layers (~39.4 GB) fit the card.  "engine": Engine.serve
+# of the serve phase's four prompts; "engine_long": four prompts above
+# Hymba's 2048-token window; "vision": embeds with M-RoPE positions through
+# the prefill and decode steps; "encdec": audio frames and target tokens
+FAMILY_RUNS = (
+    ("llama4-scout-17b-a16e", 8, "engine"),
+    ("moonshot-v1-16b-a3b", None, "engine"),
+    ("qwen2-vl-2b", None, "vision"),
+    ("mamba2-780m", None, "engine"),
+    ("hymba-1.5b", None, "engine_long"),
+    ("seamless-m4t-medium", None, "encdec"),
+)
+LONG_PROMPTS = (4096, 3072, 2048, 1024)
+VISION_GRID = (1, 32, 32)      # 1024 vision positions of 2048, text after
+ENCDEC_SRC, ENCDEC_TGT = 1024, 512
+FAMILY_DECODE_STEPS = 16       # "vision" and "encdec": after the prefill
+# the float32 depth cuts: 2 layers (Hymba 4, so that layer 1 is a local,
+# windowed one), batch 2; prompts of 512 tokens, Hymba's of 3072 so that
+# its window bites, the encoder-decoder 512 frames and 256 target tokens;
+# 8 greedy decode steps after the prefill.  Final hidden states within
+# DEPTH_CUT_TOL of the larger of 1 and their largest magnitude: at full
+# width the cut's weights (std 1/sqrt(2), the stacked leaves' fan-in)
+# saturate attention: Moonlight's cut differs by 2.29e-4 where |h|
+# reaches 5.1 on an H100, that float32 floor, as in
+# tests/test_torch_families.py.  The encoder-decoder is held at flash's
+# two uses apart (encdec_cut_parts)
+CUT_LAYERS = {"hybrid": 4}
+CUT_B, CUT_S, CUT_LONG_S, CUT_DECODE_STEPS = 2, 512, 3072, 8
+# Mamba-2-780M's SSD scan on the card against its recurrent oracle: its
+# heads (H 48, P 64, N 128, G 1), S 2048, chunk 256, batch 1, within the
+# JAX package's 1e-4 of the oracle's largest magnitude (elementwise, the
+# output's entries span 1e-3..3e2 at these widths and the chunked form
+# sums them in another order: 1.9e-3 where |y| ~ 4 on the CPU); prefill
+# then decode against one forward of the float32 cut within 2e-3 (atol
+# and rtol: tests/test_model_correctness.py)
+SSD_HEADS, SSD_SEQ, SSD_TOL, MAMBA_DECODE_TOL = 48, 2048, 1e-4, 2e-3
+MAMBA_PREFIX, MAMBA_DECODE = 32, 16
+# one MoE training step: Moonlight-16B-A3B's widths cut to 2 layers (1.81e9
+# parameters, ~29 GB of f32 weights and moments), batch 1 x 4096 tokens
+MOE_TRAIN_LAYERS, MOE_TRAIN_SEQ = 2, 4096
 
 
 def emit(phase: str, **fields) -> None:
@@ -2004,7 +2062,8 @@ def phase_serve(torch, np, rows):
     float32 check of the kernel against dense attention, then the full
     model in bf16 serving 4 requests under the RuntimeProfiler, its profile
     stored, reloaded and replayed by the emulator on the kernel backend,
-    and a report of the kernel against dense attention at full depth."""
+    and a report of the kernel against dense attention at full depth.
+    Returns the host's calibration it measured."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.configs.run import SERVE_RUN, RunConfig
@@ -2170,6 +2229,7 @@ def phase_serve(torch, np, rows):
          token_agreement=agree.mean().item(),
          max_abs_logit_diff=(last["cuda"] - last["full"]).abs().max().item(),
          max_abs_logit=last["full"].abs().max().item())
+    return host
 
 
 def _attn_grads(torch, fn, q, k, v, w):
@@ -2500,6 +2560,521 @@ def phase_train(torch, np, calib):
         fail(f"train replay ({rep.mode}) counted {got}, want {want}")
 
 
+def family_batch(torch, np, cfg, dtype, B: int, S: int, dev, seed: int,
+                 src: int = 0):
+    """A prefill batch of ``B`` x ``S`` for ``cfg``: tokens; vision embeds
+    with their M-RoPE positions (the first half of the positions a square
+    vision grid); ``src`` audio frames and ``S`` target tokens (the
+    encoder-decoder)."""
+    from repro_torch.models import frontends
+    gen = torch.Generator(dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    if cfg.family == "encdec":
+        return {"src_embeds": frontends.audio_frame_embeddings(
+                    gen, B, src, cfg.d_model, dtype, dev),
+                "tgt_tokens": torch.from_numpy(rng.integers(
+                    0, cfg.vocab_size, (B, S)).astype(np.int32)).to(dev)}
+    if cfg.family == "vlm":
+        side = int(math.isqrt(S // 2))
+        return {"embeds": frontends.vision_patch_embeddings(
+                    gen, B, S, cfg.d_model, dtype, dev),
+                "positions": frontends.mrope_positions(
+                    B, S, grid=(1, side, side), device=dev)}
+    return {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)).to(dev)}
+
+
+def greedy_steps(model, params, batch, steps: int, max_len: int,
+                 src_len=None):
+    """The prefill and ``steps`` greedy decode steps: ([B, steps + 1]
+    tokens as lists, the prefill's final hidden states)."""
+    import torch
+    from repro_torch.serve.step import greedy_token, make_decode_step
+    decode = make_decode_step(model)
+    leaf = next(v for k, v in batch.items() if k != "positions")
+    B = leaf.shape[0]
+    if model.cfg.family == "encdec":
+        cache = model.init_cache(B, max_len, src_len=src_len,
+                                 device=leaf.device)
+    else:
+        cache = model.init_cache(B, max_len, device=leaf.device)
+    hidden, cache, _ = model.forward(params, batch, cache=cache)
+    tok = greedy_token(model, params, hidden[:, -1:])
+    out = [tok]
+    for _ in range(steps):
+        tok, cache = decode(params, tok, cache)
+        out.append(tok)
+    return torch.cat(out, dim=1).tolist(), hidden
+
+
+def family_depth_cut(torch, np, cfg, dev) -> None:
+    """``cfg``'s widths cut in depth, float32: the flash kernel against
+    dense attention (final hidden states, greedy tokens of the prefill and
+    CUT_DECODE_STEPS decode steps)."""
+    import dataclasses
+    from repro_torch.configs.run import RunConfig
+    from repro_torch.models.model_zoo import build_model
+    layers = CUT_LAYERS.get(cfg.family, 2)
+    cut = dataclasses.replace(cfg, num_layers=layers)
+    S = CUT_LONG_S if cfg.family == "hybrid" else CUT_S
+    src = 0
+    if cfg.family == "encdec":           # S frames, S / 2 target tokens
+        S, src = S // 2, S
+    batch = family_batch(torch, np, cut, torch.float32, CUT_B, S, dev,
+                         seed=1, src=src)
+    f32 = dict(param_dtype="float32", compute_dtype="float32",
+               cache_dtype="float32")
+    params, models, hidden, tokens = None, {}, {}, {}
+    with torch.inference_mode():
+        for impl in ("full", "cuda"):
+            model = models[impl] = build_model(
+                cut, RunConfig(attn_impl=impl, **f32))
+            if params is None:
+                params = model.init(torch.Generator(dev).manual_seed(0), dev)
+            tokens[impl], hidden[impl] = greedy_steps(
+                model, params, batch, CUT_DECODE_STEPS,
+                S + CUT_DECODE_STEPS, src_len=src)
+        checked = {"final_hidden": (hidden["cuda"], hidden["full"])}
+        extra = {}
+        if cfg.family == "encdec":
+            checked, extra = encdec_cut_parts(torch, params, batch, models)
+    errs, ok = {}, True
+    for name, (got, want) in checked.items():
+        diff = (got - want).abs()
+        err = diff.max().item()
+        scale = max(1.0, want.abs().max().item())
+        errs[name] = {"max_abs_err": err, "max_abs": scale,
+                      "elements_above_tol": int((diff > DEPTH_CUT_TOL).sum()
+                                                .item())}
+        ok = ok and bool(torch.isfinite(got).all()) \
+            and err <= DEPTH_CUT_TOL * scale
+    emit("families", step="depth_cut_f32", model=cfg.name, layers=layers,
+         batch=CUT_B, prompt=S, frames=src, tol_of_max=DEPTH_CUT_TOL,
+         **errs, **extra, tokens_identical=tokens["cuda"] == tokens["full"],
+         tokens=tokens["cuda"])
+    if not ok:
+        fail(f"{cfg.name} depth cut: 'cuda' and 'full' differ: {errs} "
+             f"(tolerance {DEPTH_CUT_TOL} of the largest magnitude)")
+    if tokens["cuda"] != tokens["full"]:
+        fail(f"{cfg.name} depth cut: greedy tokens differ: {tokens}")
+    if cfg.family == "ssm":
+        mamba_checks(torch, np, model, params, dev)
+
+
+def encdec_cut_parts(torch, params, batch, models):
+    """The encoder-decoder's float32 cut, flash against dense attention at
+    its two uses apart: the encoders' outputs (unmasked self-attention)
+    and the first decoder layer's causal self-attention on the embedded
+    target tokens.  Its decoder's cross-attention is saturated at the cut's
+    weights (logits' std ~512), so a difference at the float32 floor
+    upstream flips the argmax key of some queries: the decoders' final
+    hidden states, over one encoding and end to end, are printed, not
+    held."""
+    import torch.nn.functional as F
+    from repro_torch.models import encdec
+    from repro_torch.models.layers import attention, rmsnorm
+    from repro_torch.models.params import map_tensors
+    from repro_torch.models.transformer import _attn_run
+    enc = {impl: encdec.encode(params, batch["src_embeds"], cfg=m.cfg,
+                               run=m.run) for impl, m in models.items()}
+    cfg = models["full"].cfg
+    tgt = batch["tgt_tokens"]
+    x = encdec._embed_scale(F.embedding(tgt.long(), params["embed"]), cfg,
+                            models["full"].run)
+    pl = map_tensors(params["dec_layers"], lambda p: p[0])
+    h = rmsnorm(pl["ln_self"], x, cfg.norm_eps)
+    pos = torch.arange(tgt.shape[1], device=tgt.device)[None].expand(
+        tgt.shape)
+    self_attn = {impl: attention(pl["self_attn"], h, cfg=cfg, positions=pos,
+                                 run=_attn_run(m.run))[0]
+                 for impl, m in models.items()}
+    encode, dec = encdec.encode, {}
+    encdec.encode = lambda *args, **kw: enc["full"]
+    try:
+        for impl, m in models.items():
+            dec[impl] = m.forward(params, batch)[0]
+    finally:
+        encdec.encode = encode
+    e2e = (models["cuda"].forward(params, batch)[0]
+           - models["full"].forward(params, batch)[0]).abs().max()
+    return ({"encoder": (enc["cuda"], enc["full"]),
+             "decoder_self_attention": (self_attn["cuda"],
+                                        self_attn["full"])},
+            {"decoder_on_one_encoding_max_abs_err":
+                (dec["cuda"] - dec["full"]).abs().max().item(),
+             "end_to_end_max_abs_err": e2e.item()})
+
+
+def mamba_checks(torch, np, model, params, dev) -> None:
+    """Mamba-2 on the card: the chunked SSD scan against its recurrent
+    oracle at Mamba-2-780M's heads, and the float32 cut's prefill then
+    decode steps against one forward over the same tokens."""
+    import torch.nn.functional as F
+    from repro_torch.models import ssm
+    cfg = model.cfg
+    s = cfg.ssm
+    g = torch.Generator(dev).manual_seed(3)
+    H, P, N = cfg.ssm_heads, s.head_dim, s.state_dim
+    x = torch.randn((1, SSD_SEQ, H, P), generator=g, device=dev)
+    dt = F.softplus(torch.randn((1, SSD_SEQ, H), generator=g, device=dev))
+    A = -torch.exp(0.5 * torch.randn((H,), generator=g, device=dev))
+    Bm = torch.randn((1, SSD_SEQ, s.ngroups, N), generator=g, device=dev)
+    Cm = torch.randn((1, SSD_SEQ, s.ngroups, N), generator=g, device=dev)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        y, st = ssm.ssd_chunked(x, dt, A, Bm, Cm, chunk=s.chunk_size,
+                                return_state=True)
+        torch.cuda.synchronize()
+        chunked_first_call_s = time.perf_counter() - t0
+        ry, rs = ssm.ssd_reference(x, dt, A, Bm, Cm)
+    errs = {}
+    for name, got, want in (("y", y, ry), ("final_state", st, rs)):
+        d = (got - want).abs()
+        errs[name] = {"max_abs_err": d.max().item(),
+                      "max_abs": want.abs().max().item(),
+                      "elementwise_1e-4_share": (
+                          d <= 1e-4 + 1e-4 * want.abs()).float().mean()
+                      .item()}
+    ok = all(e["max_abs_err"] <= SSD_TOL * e["max_abs"]
+             for e in errs.values())
+    emit("families", step="ssd_scan_vs_oracle", heads=H, head_dim=P,
+         state_dim=N, groups=s.ngroups, seq=SSD_SEQ, chunk=s.chunk_size,
+         tol_of_max=SSD_TOL, chunked_first_call_s=chunked_first_call_s,
+         **errs)
+    if not (ok and H == SSD_HEADS):
+        fail(f"the SSD scan differs from its oracle: {errs}")
+
+    # prefill of MAMBA_PREFIX tokens then MAMBA_DECODE steps, each step's
+    # logits against the forward over all of them
+    rng = np.random.default_rng(4)
+    n = MAMBA_PREFIX + MAMBA_DECODE
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (CUT_B, n))
+                            .astype(np.int32)).to(dev)
+    worst = 0.0
+    with torch.inference_mode():
+        full = model.logits(params, model.forward(params,
+                                                  {"tokens": toks})[0])
+        cache = model.init_cache(CUT_B, n, device=dev)
+        _, cache, _ = model.forward(
+            params, {"tokens": toks[:, :MAMBA_PREFIX]}, cache=cache)
+        for t in range(MAMBA_PREFIX, n):
+            h, cache, _ = model.forward(params, {"tokens": toks[:, t:t + 1]},
+                                        cache=cache, decode=True)
+            got, want = model.logits(params, h)[:, 0], full[:, t]
+            worst = max(worst, ((got - want).abs() / (
+                MAMBA_DECODE_TOL + MAMBA_DECODE_TOL * want.abs())).max()
+                .item())
+    emit("families", step="mamba_decode_vs_forward", prefix=MAMBA_PREFIX,
+         decode_steps=MAMBA_DECODE, worst_err_over_bound=worst,
+         tol=MAMBA_DECODE_TOL)
+    if not worst <= 1.0:
+        fail(f"Mamba-2 decode differs from its forward: {worst} x the "
+             f"bound of {MAMBA_DECODE_TOL}")
+
+
+def family_flash_shapes(cfg, kind: str):
+    """The flash calls of ``cfg``'s prefill in FAMILY_RUNS' traffic:
+    (BH, BKV, S, hd, causal, window), one a distinct shape."""
+    if cfg.family == "ssm":
+        return []
+    B, Hq, Hk, hd = SERVE_B, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if kind == "encdec":
+        return [(B * Hq, B * Hk, ENCDEC_SRC, hd, False, None),
+                (B * Hq, B * Hk, ENCDEC_TGT, hd, True, None)]
+    S = max(LONG_PROMPTS) if kind == "engine_long" else max(SERVE_PROMPTS)
+    shapes = [(B * Hq, B * Hk, S, hd, True, None)]
+    if cfg.attn.sliding_window is not None:
+        shapes.append((B * Hq, B * Hk, S, hd, True, cfg.attn.sliding_window))
+    return shapes
+
+
+def check_family_flash(torch, cfg, kind, dev) -> None:
+    """The bf16 flash kernel against its plain version at ``cfg``'s prefill
+    shapes, on random inputs: FLASH_TOL and the error's RMS within
+    FLASH_SERVE_REL_RMS of the output's, as at the serving shape.  These
+    launches are a comparison's, not the path's: the caller counts the
+    path's."""
+    from repro_torch.kernels.flash_attention import kernel as fk, ref as fref
+    g = torch.Generator(dev).manual_seed(6)
+    tol = FLASH_TOL["bfloat16"]
+    for BH, BKV, S, hd, causal, window in family_flash_shapes(cfg, kind):
+        q, k, v = (torch.randn((n, S, hd), generator=g, device=dev).to(
+            torch.bfloat16) for n in (BH, BKV, BKV))
+        kw = dict(causal=causal, window=window, group=BH // BKV)
+        got = fk.flash_attention(q, k, v, block_q=512, block_kv=1024,
+                                 **kw).float()
+        want = fref.flash_attention(q, k, v, **kw).float()
+        err = (got - want).abs().max().item()
+        rel_rms = ((got - want).square().mean().sqrt()
+                   / want.square().mean().sqrt()).item()
+        ok = torch.allclose(got, want, atol=tol, rtol=tol) and \
+            rel_rms < FLASH_SERVE_REL_RMS
+        emit("families", step="flash_vs_plain", model=cfg.name,
+             dtype="torch.bfloat16", case=[BH, BKV, S, hd, causal, window],
+             max_abs_err=err, tol=tol, rel_rms_err=rel_rms, ok=ok)
+        if not ok:
+            fail(f"{cfg.name}: flash_attention at "
+                 f"{[BH, BKV, S, hd, causal, window]}: max abs err {err}, "
+                 f"error RMS / output RMS {rel_rms}")
+        del q, k, v, got, want
+
+
+def flash_layers(cfg) -> int:
+    """Layers whose prefill attention routes to the flash kernel under
+    attn_impl="cuda": every attention layer (the encoder's and the
+    decoder's self-attention; the cross-attention never does)."""
+    if cfg.family == "ssm":
+        return 0
+    return cfg.num_layers + cfg.num_encoder_layers
+
+
+def family_serve(torch, np, cfg, kind, dev, host, calib):
+    """``cfg`` in bf16 on the card: its traffic under the RuntimeProfiler,
+    a trace, and the profile replayed on the kernel backend.  Returns the
+    flash launches of the profiled run."""
+    import dataclasses
+    from repro_torch.configs.run import SERVE_RUN
+    from repro_torch.core import Emulator, RuntimeProfiler
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.serve.engine import Engine, Request
+    from repro_torch.serve.step import make_decode_step, make_prefill_step
+    model = build_model(cfg, dataclasses.replace(SERVE_RUN,
+                                                 attn_impl="cuda"))
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    emit("families", step="init", model=cfg.name, layers=cfg.num_layers,
+         seconds=time.perf_counter() - t0, params=model.num_params(),
+         param_bytes=sum(t.numel() * t.element_size()
+                         for t in _leaves(params)))
+    times = {"prefill": [], "decode": []}
+
+    def timed(fn, key):
+        def run(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            times[key].append(time.perf_counter() - t)
+            return out
+        return run
+
+    rng = np.random.default_rng(2)
+    if kind.startswith("engine"):
+        plens = LONG_PROMPTS if kind == "engine_long" else SERVE_PROMPTS
+        engine = Engine(model, params, batch_slots=SERVE_B,
+                        max_len=max(plens) + SERVE_NEW_TOKENS, device=dev)
+        prompts = [list(rng.integers(0, cfg.vocab_size, n)) for n in plens]
+        prefill, decode = engine.prefill, engine.decode
+
+        def traffic(new_tokens):
+            reqs = engine.serve([Request(prompt=p, max_new_tokens=new_tokens)
+                                 for p in prompts])
+            return [r.out_tokens for r in reqs]
+
+        def set_steps(p, d):
+            engine.prefill, engine.decode = p, d
+        waves, new_tokens = -(-len(prompts) // SERVE_B), SERVE_NEW_TOKENS
+        batch = {"tokens": torch.zeros((SERVE_B, max(plens)),
+                                       dtype=torch.int32, device=dev)}
+        for i, p in enumerate(prompts):
+            batch["tokens"][i, -len(p):] = torch.tensor(p, dtype=torch.int32)
+    else:
+        if kind == "encdec":
+            S, src = ENCDEC_TGT, ENCDEC_SRC
+        else:
+            S, src = 2 * VISION_GRID[1] * VISION_GRID[2], 0
+        batch = family_batch(torch, np, cfg, torch.bfloat16, SERVE_B, S,
+                             dev, seed=2, src=src)
+        steps = {"prefill": make_prefill_step(
+                     model, S + FAMILY_DECODE_STEPS, src_len=src or None),
+                 "decode": make_decode_step(model)}
+        prefill, decode = steps["prefill"], steps["decode"]
+
+        def traffic(n_steps):
+            with torch.inference_mode():
+                tok, cache = steps["prefill"](params, batch)
+                out = [tok]
+                for _ in range(n_steps):
+                    tok, cache = steps["decode"](params, tok, cache)
+                    out.append(tok)
+            return torch.cat(out, dim=1).tolist()
+
+        def set_steps(p, d):
+            steps["prefill"], steps["decode"] = p, d
+        waves, new_tokens = 1, FAMILY_DECODE_STEPS
+
+    traffic(2)                  # warm up: cuBLAS picks its kernels
+    set_steps(timed(prefill, "prefill"), timed(decode, "decode"))
+    drops = []                  # each MoE layer's drop fraction, in order
+    moe_block = moe_lib.moe_block
+
+    def recording(p, x, *, cfg):
+        out, aux = moe_block(p, x, cfg=cfg)
+        drops.append(aux["moe_drop_fraction"])
+        return out, aux
+    moe_lib.moe_block = recording
+    torch.cuda.reset_peak_memory_stats()
+    fk.launches = 0
+    out = {}
+    try:
+        prof = RuntimeProfiler(sample_rate=20).profile_callable(
+            lambda: out.setdefault("tokens", traffic(new_tokens)),
+            command=f"serve-{cfg.name}", tags={"batch": str(SERVE_B),
+                                               "traffic": kind},
+            flops_per_cpu_s=host.flops_per_s)
+    finally:
+        moe_lib.moe_block = moe_block
+    launches = fk.launches
+    peak = torch.cuda.max_memory_allocated()
+    tokens = out["tokens"]
+    generated = sum(len(t) for t in tokens)
+    serve_s = sum(times["prefill"]) + sum(times["decode"])
+    want_launches = flash_layers(cfg) * waves
+    moe = {}
+    if drops:
+        per_call = cfg.num_layers
+        fr = torch.stack(drops).float().cpu()
+        moe = {"moe_drop_fraction_prefill": fr[:per_call].mean().item(),
+               "moe_drop_fraction_decode": fr[per_call:].mean().item(),
+               "moe_layers_recorded": len(drops)}
+    emit("families", step="serve", model=cfg.name, family=cfg.family,
+         layers=cfg.num_layers, traffic=kind, requests=len(tokens),
+         waves=waves, prefill_ms=sum(times["prefill"]) * 1e3 / waves,
+         decode_ms_per_step=sum(times["decode"]) * 1e3 / max(
+             1, len(times["decode"])),
+         decode_steps=len(times["decode"]), generated_tokens=generated,
+         tokens_per_s=generated / serve_s, wall_s=prof.meta["wall_s"],
+         max_memory_allocated=peak, flash_launches=launches,
+         flash_launches_want=want_launches, **moe,
+         tokens=[t[:4] for t in tokens])
+    if launches != want_launches:
+        fail(f"{cfg.name}: flash_attention launched {launches} times, want "
+             f"{flash_layers(cfg)} attention layers x {waves} waves")
+    if any(len(t) != new_tokens + (kind in ("vision", "encdec"))
+           or not all(0 <= v < cfg.vocab_size for v in t) for t in tokens):
+        fail(f"{cfg.name}: tokens {tokens}")
+    if moe and not 0.0 <= moe["moe_drop_fraction_prefill"] < 1.0:
+        fail(f"{cfg.name}: drop fraction {moe}")
+
+    # a prefill and 4 decode steps under the profiler: the trace must hold
+    # every flash launch the wrapper counted (PERF.md, open questions)
+    def prefill_and_decode():
+        with torch.inference_mode():
+            tok, cache = prefill(params, batch)
+            for _ in range(4):
+                tok, cache = decode(params, tok, cache)
+
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        fk.launches = 0
+        wall, busy, top = device_time(torch, prefill_and_decode)
+        traced = sum(k[2] for k in top if BF16_FLASH_SYMBOL in k[0])
+        emit("families", step="trace_prefill_decode_4", model=cfg.name,
+             attempt=attempt, wall_s=wall, kernel_s=busy,
+             busy_share=busy / wall, top_kernels=top[:5],
+             traced_flash=traced, counted_flash=fk.launches)
+        if traced == fk.launches:
+            break
+    else:
+        fail(f"{cfg.name}: {TRACE_ATTEMPTS} traces missed flash launches")
+
+    # the profile replayed on the kernel backend (in memory: the phase
+    # writes nothing to disk)
+    em = Emulator(calib=calib, backend="cuda")
+    want = planned_counts(em, prof)
+    zero_counters()
+    rep = em.emulate(prof)
+    torch.cuda.synchronize()
+    got = counters()
+    emit("families", step="replay", model=cfg.name, backend="cuda",
+         mode=rep.mode, n_samples=rep.n_samples,
+         n_dispatches=rep.n_dispatches, ttc_s=rep.ttc_s,
+         profiled_wall_s=prof.meta["wall_s"], flops=prof.totals.flops,
+         counters=got)
+    if not same_amounts(rep.consumed, prof.totals):
+        fail(f"{cfg.name} replay consumed {rep.consumed} != {prof.totals}")
+    if got != want or rep.mode != "fused" or not got["segment"]:
+        fail(f"{cfg.name} replay ({rep.mode}) counted {got}, want {want}")
+    return launches
+
+
+def moe_train_step(torch, np, dev) -> None:
+    """One training step of Moonlight-16B-A3B's widths cut to
+    MOE_TRAIN_LAYERS layers, under TRAIN_RUN (f32 master weights, bf16
+    compute, remat), after one step that warms up: finite loss and aux
+    terms, step time, peak memory."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.run import TRAIN_RUN
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"),
+                              num_layers=MOE_TRAIN_LAYERS)
+    model = build_model(cfg, TRAIN_RUN)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(model, torch.Generator(dev).manual_seed(0),
+                             device=dev)
+    state_bytes = sum(t.numel() * t.element_size() for t in _leaves(state))
+    step = make_train_step(model, OptConfig())
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (1, MOE_TRAIN_SEQ + 1)).astype(np.int64)).to(dev)
+    batch = {"tokens": toks[:, :-1].int(), "targets": toks[:, 1:].int()}
+    step_s, mets = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, met = step(state, batch)
+        met = {k: v.item() for k, v in met.items()}
+        step_s.append(time.perf_counter() - t)
+        mets.append(met)
+    emit("families", step="moe_train_step", model=cfg.name,
+         layers=MOE_TRAIN_LAYERS, params=model.num_params(),
+         state_bytes=state_bytes, seq=MOE_TRAIN_SEQ, step_s=step_s,
+         step_ms=step_s[-1] * 1e3,
+         tokens_per_s=MOE_TRAIN_SEQ / step_s[-1],
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         metrics=mets[-1])
+    for met in mets:
+        for k in ("loss", "moe_load_balance", "moe_router_z",
+                  "moe_drop_fraction", "grad_norm"):
+            if not math.isfinite(met[k]):
+                fail(f"MoE train step: {k} = {met[k]}")
+
+
+def phase_families(torch, np, rows, calib, host, dev=None):
+    """The other model families at their published widths (FAMILY_RUNS):
+    a float32 depth cut of each against dense attention, each served in
+    bf16 under the RuntimeProfiler with its profile replayed on the kernel
+    backend, Mamba-2's scan against its oracle, one MoE training step.
+    ``host``: the host's calibration (flops per CPU second) the serve
+    phase measured."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import get_config
+    dev = torch.device("cuda") if dev is None else dev
+    launches = 0
+    for name, layers, kind in FAMILY_RUNS:
+        cfg = get_config(name)
+        family_depth_cut(torch, np, cfg, dev)
+        check_family_flash(torch, cfg, kind, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        launches += family_serve(torch, np, cfg, kind, dev, host, calib)
+        gc.collect()
+        torch.cuda.empty_cache()
+    moe_train_step(torch, np, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows["flash_attention"]["launches"] += launches
+    rows["flash_attention"]["families_launches"] = launches
+
+
 def compute_legs(table) -> int:
     """Rows of a compiled table that burn: the kernel backend launches one
     burn for each."""
@@ -2558,8 +3133,9 @@ def main() -> None:
     rows.update(phase_collective(torch, np, calib, build_info))
     fleet_profiles, fleet_refs = phase_fleet(torch, calib, per_iter_ms)
     phase_service(torch, calib, fleet_profiles, fleet_refs)
-    phase_serve(torch, np, rows)
+    host = phase_serve(torch, np, rows)
     phase_train(torch, np, calib)
+    phase_families(torch, np, rows, calib, host)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for row in rows.values():

@@ -22,11 +22,11 @@ recomputes the rest; ``full``, which saves only the layer's input.
 
 The JAX package's fields for distribution (``zero1``, ``sharding_mode``,
 ``pipeline_stages``, ``max_cache_len``) come with the sharding slice
-(ROADMAP.md queue 1, item 7h), ``moe_dense_smoke`` with mixture of experts
-(item 7c).  ``skip_attn_blocks`` is not kept: the JAX package's
-``attend_blocked`` discards it.  ``grad_compression`` is kept and, as in
-the JAX package, read by nothing: ``make_job(compress=)`` and
-``train(compress=)`` are the only switch for compression.
+(ROADMAP.md queue 1, item 7h).  ``skip_attn_blocks`` is not kept: the
+JAX package's ``attend_blocked`` discards it.  ``moe_dense_smoke`` and
+``grad_compression`` are kept and, as in the JAX package, read by
+nothing: ``make_job(compress=)`` and ``train(compress=)`` are the only
+switch for compression.
 """
 from __future__ import annotations
 
@@ -58,6 +58,8 @@ class RunConfig:
     # optimizer
     grad_compression: str = "none"       # none | int8_ef
     microbatches: int = 1
+    # moe
+    moe_dense_smoke: bool = False        # tiny-model testing aid; unread
 
     def __post_init__(self):
         if self.attn_impl not in ATTN_IMPLS:

@@ -494,8 +494,11 @@ def attention(p, x, *, cfg: ModelConfig, positions, is_local=False,
             if local_flag is not None:
                 raise ValueError("attn_impl='cuda' takes a static window: "
                                  "pass is_local as a bool")
+            # ``causal`` is passed through: the JAX package's "pallas"
+            # path always masks causally, also in the encoder, which asks
+            # for no mask (a fault the port does not copy)
             out = fa.ops.flash_attention_grouped(
-                qg, k, v, causal=True, window=window,
+                qg, k, v, causal=causal, window=window,
                 softcap=a.logit_softcap,
                 block_q=run.block_q, block_kv=run.block_kv)
         elif impl == "blocked":

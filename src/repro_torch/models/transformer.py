@@ -1,14 +1,16 @@
-"""Decoder-only transformer LM (the dense family: qwen2 / gemma2).
+"""Decoder-only transformer LM (llama4 / moonshot / qwen2 / gemma2 / qwen2-vl)
+and the layer loop the Mamba-2 and Hymba stacks share.
 
 Parameters are stacked with a leading layer dim, as in the JAX package; its
 ``lax.scan`` over layers becomes a Python loop over layer indices, each
 indexing views (never copies) of the stacked tensors.  The per-layer
-locality flag comes from ``layer_plan`` as a Python bool, so gemma2's local
-layers get a static window.  KV caches are stacked with a leading layer dim
-too, ``{"attn": {"k", "v": [L,B,T,Hk,hd], "pos": [L,B]}}``, and each layer's
-new entries are written into them in place.  The activation remat policy
-(``RunConfig.remat``) wraps each layer in ``torch.utils.checkpoint``, as the
-JAX package wraps its scan body in ``jax.checkpoint``.
+locality flag comes from ``layer_plan`` as a Python bool, so gemma2's and
+Hymba's local layers get a static window.  KV caches are stacked with a
+leading layer dim too, ``{"attn": {"k", "v": [L,B,T,Hk,hd], "pos":
+[L,B]}}``, and each layer's new entries are written into them in place.
+The activation remat policy (``RunConfig.remat``) wraps each layer in
+``torch.utils.checkpoint``, as the JAX package wraps its scan body in
+``jax.checkpoint``.
 """
 from __future__ import annotations
 
@@ -25,12 +27,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.run import RunConfig
 from repro_torch.device import DeviceLike, resolve
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (AttnRun, attention, def_attention,
                                        def_mlp, def_rmsnorm, mlp, rmsnorm)
 from repro_torch.models.params import PDef, map_tensors, stack_pdefs
-
-MOE_TODO = ("mixture-of-experts blocks (models/moe.py) are not ported yet: "
-            "ROADMAP.md queue 1, item 7c")
 
 
 # ---------------------------------------------------------------------------
@@ -67,8 +67,9 @@ def def_block(cfg: ModelConfig) -> Dict[str, Any]:
         p["ln_attn_post"] = def_rmsnorm(d)
         p["ln_mlp_post"] = def_rmsnorm(d)
     if cfg.moe is not None:
-        raise NotImplementedError(MOE_TODO)
-    p["mlp"] = def_mlp(d, cfg.d_ff)
+        p["moe"] = moe_lib.def_moe(cfg)
+    else:
+        p["mlp"] = def_mlp(d, cfg.d_ff)
     return p
 
 
@@ -138,11 +139,14 @@ def block_apply(pl, x, *, cfg: ModelConfig, run: RunConfig, positions,
     x = x + attn_out
 
     h = rmsnorm(pl["ln_mlp"], x, cfg.norm_eps)
-    mlp_out = mlp(pl["mlp"], h)
+    if cfg.moe is not None:
+        mlp_out, aux = moe_lib.moe_block(pl["moe"], h, cfg=cfg)
+    else:
+        mlp_out, aux = mlp(pl["mlp"], h), {}
     if cfg.sandwich_norms:
         mlp_out = rmsnorm(pl["ln_mlp_post"], mlp_out, cfg.norm_eps)
     x = x + mlp_out
-    return x, new_cache, {}
+    return x, new_cache, aux
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -230,7 +234,8 @@ def _plan_layers(cfg: ModelConfig):
 
 def forward_stack(params, batch, *, cfg: ModelConfig, run: RunConfig,
                   block_fn, cache=None, decode=False):
-    """Generic layer loop for the decoder-only families.
+    """Generic layer loop for the decoder-only families (dense, moe, vlm,
+    ssm, hybrid).
 
     ``block_fn(pl, x, positions, local_flag, cache_layer, decode)``
         -> (x, new_cache_layer, aux)
@@ -244,9 +249,12 @@ def forward_stack(params, batch, *, cfg: ModelConfig, run: RunConfig,
     B, S, D = x.shape
     positions = batch.get("positions")
     if positions is None:
-        if decode and cache is not None:
+        if decode and cache is not None and "attn" in cache:
             # a copy: the layers advance the cached positions in place
             positions = cache["attn"]["pos"][0][:, None].clone()  # [B,1]
+        elif decode:                        # ssm: unused
+            positions = torch.zeros((B, 1), dtype=torch.int32,
+                                    device=x.device)
         else:
             positions = torch.arange(S, device=x.device)[None].expand(B, S)
 
@@ -292,7 +300,7 @@ def make_dense_block(cfg: ModelConfig, run: RunConfig):
 
 def forward_lm(params, batch, *, cfg: ModelConfig, run: RunConfig,
                cache=None, decode=False):
-    """Dense decoder-only forward: (hidden, new_cache, aux)."""
+    """Dense/MoE/VLM decoder-only forward: (hidden, new_cache, aux)."""
     return forward_stack(params, batch, cfg=cfg, run=run,
                          block_fn=make_dense_block(cfg, run),
                          cache=cache, decode=decode)

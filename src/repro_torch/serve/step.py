@@ -5,6 +5,8 @@ slice (ROADMAP.md queue 1, item 7h).
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.models.model_zoo import Model
@@ -16,11 +18,19 @@ def greedy_token(model: Model, params, hidden_last):
     return torch.argmax(logits, dim=-1).to(torch.int32)   # [B,1]
 
 
-def make_prefill_step(model: Model, max_len: int):
+def make_prefill_step(model: Model, max_len: int,
+                      src_len: Optional[int] = None):
+    """``src_len``: the encoder-decoder's source length for its cross cache
+    (``max_len`` when None)."""
     def prefill_step(params, batch):
-        tokens = batch["tokens"]
-        cache = model.init_cache(tokens.shape[0], max_len,
-                                 device=tokens.device)
+        leaf = batch.get("tokens", batch.get("tgt_tokens",
+                                             batch.get("embeds")))
+        B = leaf.shape[0]
+        if model.cfg.family == "encdec":
+            cache = model.init_cache(B, max_len, src_len=src_len,
+                                     device=leaf.device)
+        else:
+            cache = model.init_cache(B, max_len, device=leaf.device)
         hidden, cache, _ = model.forward(params, batch, cache=cache)
         tok = greedy_token(model, params, hidden[:, -1:])
         return tok, cache

@@ -26,6 +26,7 @@ from repro_torch.kernels.segment import kernel as sk, ref as sref
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.layers import attend_blocked, attend_full
 from repro_torch.models.model_zoo import build_model
+from repro_torch.models.params import map_tensors
 from repro_torch.scenarios import generate
 from repro_torch.serve.engine import Engine, Request
 
@@ -577,3 +578,61 @@ def test_tiny_train_step_on_the_card_matches_the_cpu(dev, seed, batch_step):
     planted = chip_smoke.tiny_step_errors(torch, dev, seed, batch_step,
                                           tf32=True)
     assert not planted["ok"], planted
+
+
+FAMILY_ARCHS = ["llama4-scout-17b-a16e", "moonshot-v1-16b-a3b",
+                "qwen2-vl-2b", "mamba2-780m", "hymba-1.5b",
+                "seamless-m4t-medium"]
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_forward_and_greedy_steps_on_the_card_match_the_cpu(dev,
+                                                                    arch):
+    """Each family's reduced model in float32, the same weights on the
+    card ("cuda" attention: the flash kernel) and on the CPU (its plain
+    version): final hidden states within 1e-4 of their largest magnitude
+    (at least 1), identical greedy tokens of a prefill and 3 decode
+    steps."""
+    f32 = dict(param_dtype="float32", compute_dtype="float32",
+               cache_dtype="float32")
+    cfg = reduced_config(get_config(arch))
+    model = build_model(cfg, RunConfig(attn_impl="cuda", **f32))
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    S, src = (8, 16) if cfg.family == "encdec" else (16, 0)
+    batch = chip_smoke.family_batch(torch, np, cfg, torch.float32, 2, S,
+                                    torch.device("cpu"), seed=1, src=src)
+    out = {}
+    for where in ("cpu", dev):
+        p = map_tensors(params, lambda t: t.to(where))
+        b = {k: v.to(where) for k, v in batch.items()}
+        with torch.inference_mode():
+            out[str(where)] = chip_smoke.greedy_steps(
+                model, p, b, 3, S + 3, src_len=src)
+    (t_cpu, h_cpu), (t_card, h_card) = out["cpu"], out[str(dev)]
+    assert t_card == t_cpu
+    scale = max(1.0, h_cpu.abs().max().item())
+    assert (h_card.cpu() - h_cpu).abs().max().item() <= 1e-4 * scale
+
+
+def test_ssd_scan_on_the_card_matches_its_oracle(dev):
+    """The chunked SSD scan against the recurrent oracle on the card, at
+    the JAX package's test sizes (tests/test_model_correctness.py) and a
+    ragged length, within its 1e-4; the gradients stay finite where the
+    decay overflows float32."""
+    import torch.nn.functional as F
+    from repro_torch.models import ssm
+    g = torch.Generator(dev).manual_seed(2)
+    for L, chunk, G in ((32, 8, 1), (32, 4, 2), (30, 8, 1)):
+        x = torch.randn((2, L, 4, 8), generator=g, device=dev)
+        dt = F.softplus(torch.randn((2, L, 4), generator=g, device=dev))
+        A = -torch.exp(0.5 * torch.randn((4,), generator=g, device=dev))
+        Bm = torch.randn((2, L, G, 16), generator=g, device=dev)
+        Cm = torch.randn((2, L, G, 16), generator=g, device=dev)
+        y, s = ssm.ssd_chunked(x, dt, A, Bm, Cm, chunk=chunk,
+                               return_state=True)
+        ry, rs = ssm.ssd_reference(x, dt, A, Bm, Cm)
+        torch.testing.assert_close(y, ry, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(s, rs, atol=1e-4, rtol=1e-4)
+    leaves = [t.detach().requires_grad_() for t in (x, dt * 40, A, Bm, Cm)]
+    ssm.ssd_chunked(*leaves, chunk=8).square().sum().backward()
+    assert all(torch.isfinite(t.grad).all() for t in leaves)

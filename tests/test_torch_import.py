@@ -69,7 +69,10 @@ SLICE = [
     "repro_torch.configs.seamless_m4t_medium",
     "repro_torch.models", "repro_torch.models.params",
     "repro_torch.models.layers", "repro_torch.models.transformer",
-    "repro_torch.models.model_zoo",
+    "repro_torch.models.model_zoo", "repro_torch.models.moe",
+    "repro_torch.models.ssm", "repro_torch.models.hybrid",
+    "repro_torch.models.encdec", "repro_torch.models.frontends",
+    "repro_torch.parallel", "repro_torch.parallel.sharding",
     "repro_torch.serve", "repro_torch.serve.step",
     "repro_torch.serve.engine",
     "repro_torch.train", "repro_torch.train.loss", "repro_torch.train.step",
@@ -120,7 +123,7 @@ def test_port_sources_name_no_jax_or_repro():
     # the scan reaches every subpackage, this slice's included
     for sub in ("fleet", "obs", "service", "scenarios", "transport",
                 "launch", "collective", "train", "optim", "data",
-                "checkpoint", "runtime"):
+                "checkpoint", "runtime", "parallel"):
         assert any(os.sep + sub + os.sep in f for f in files), sub
     for path in files:
         with open(path) as f:
@@ -143,8 +146,13 @@ def test_default_device_raises_without_cuda(tmp_path):
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.models.params import train_state_from_numpy
     from repro_torch.train.loop import make_job
+    from repro_torch.models import frontends
+    from repro_torch.models.ssm import init_mamba_cache
     cal = HostCalibration(1e9, 1e9, 1e8, 1e8)
     model = build_model(reduced_config(get_config("qwen2-7b")), SERVE_RUN)
+    families = [build_model(reduced_config(get_config(a)), SERVE_RUN)
+                for a in ("mamba2-780m", "hymba-1.5b",
+                          "seamless-m4t-medium")]
     ckpt_dir = str(tmp_path / "ck")
     ckpt = CheckpointManager(ckpt_dir)
     ckpt.save(1, {"w": torch.zeros(2)})
@@ -163,7 +171,14 @@ def test_default_device_raises_without_cuda(tmp_path):
                  lambda: train_state_from_numpy(
                      {"params": {}, "opt": {"mu": {}, "nu": {}, "step": 0}}),
                  lambda: ckpt.restore(),
-                 lambda: calibrate()):
+                 lambda: calibrate(),
+                 lambda: frontends.mrope_positions(1, 4),
+                 lambda: frontends.audio_frame_embeddings(
+                     torch.Generator(), 1, 4, 8),
+                 lambda: frontends.vision_patch_embeddings(
+                     torch.Generator(), 1, 4, 8),
+                 lambda: init_mamba_cache(families[0].cfg, 1),
+                 *(lambda m=m: m.init_cache(1, 8) for m in families)):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
 
