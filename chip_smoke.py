@@ -29,7 +29,10 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
              iterations and passes the table's); dispatches, iterations
              and kernel launches are checked against the schedule, the
              device's busy share is read from the launches and the device
-             time of each, and ``predict`` is printed beside
+             time of each, and ``predict`` is printed beside; the
+             ``"torch"`` backend's memory leg (in-place passes over the
+             atom's ring) fails above 1.05 x the HBM rate, as the ring
+             kernel does
   collective the collective atom on a mesh whose shards all live on the
              card (printed as ``shared``): ``csrc/collective.cu`` (the
              per-sample collective) and the segment kernel's wire leg
@@ -94,6 +97,17 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
              waves), traced prefill and decode steps, the profile stored,
              reloaded and replayed on the ``"cuda"`` emulator backend, and
              a full-depth report of the kernel against dense attention
+  static     the static watcher (``profile_step``, the operator counter)
+             at Qwen2-7B's widths: the serve phase's full-depth bf16
+             prefill on the card (28 flash launches; glue, 28 layer
+             samples, glue; dot flops within 1e-9 of the analytic count),
+             the same step on meta tensors (the same cost bit for bit, no
+             launch), the train phase's 4-layer step on the card (forward
+             and backward layer samples), each profile replayed fused on
+             the ``"cuda"`` emulator (one segment launch, device counts the
+             plan's, consumed flops within 1e-6 of the profile's), with
+             the emulated time, ``predict`` on the H100, the measured step
+             and the profiling overhead printed beside
   train      the training path: blocked attention (flash and banded)
              against dense attention at Qwen2-7B's heads, forward and
              dq/dk/dv in float32 and the forward in bf16, each timed
@@ -122,6 +136,8 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
              with the table's device counts.  Mamba-2's SSD scan against
              its recurrent oracle at its heads and prefill then decode
              against one forward; one MoE training step
+  examples   every ``examples/torch_*.py`` on the card as a subprocess:
+             exit 0, wall time
 
 Then one ``{"kernels": [...]}`` line and, last, one ``{"ok": true, ...}``
 line.  Any failed check exits non-zero before the last line.  Without a
@@ -320,6 +336,14 @@ MAMBA_PREFIX, MAMBA_DECODE = 32, 16
 # one MoE training step: Moonlight-16B-A3B's widths cut to 2 layers (1.81e9
 # parameters, ~29 GB of f32 weights and moments), batch 1 x 4096 tokens
 MOE_TRAIN_LAYERS, MOE_TRAIN_SEQ = 2, 4096
+# the static watcher: the prefill's dot flops within STATIC_DOT_TOL of the
+# analytic count (integers below 2^53 summed in float64: exact but for
+# the order of the sum); a replay's consumed flops within
+# STATIC_REPLAY_TOL of the profile's (each compute row rounds to whole
+# 2 x 256^3-flop burn iterations); steps timed STATIC_TIMED_STEPS times
+STATIC_DOT_TOL, STATIC_REPLAY_TOL, STATIC_TIMED_STEPS = 1e-9, 1e-6, 3
+# the examples phase: every examples/torch_*.py, each within its timeout
+EXAMPLES_WANTED, EXAMPLE_TIMEOUT_S = 9, 600
 
 
 def emit(phase: str, **fields) -> None:
@@ -1065,6 +1089,19 @@ TRACED_KERNELS = (("segment", "segment_kernel"),
                   ("stream_ring", "::stream_ring("))
 
 
+def torch_ring_pass_ms(torch, block: int = 1 << 24):
+    """The ``"torch"`` backend's memory leg on the card: device ms of one
+    in-place pass over the memory atom's ring of ``block``-byte slots (a
+    CUDA graph of two rounds of the ring), its bytes a second (a read and
+    a write of the block) and the ring's slots."""
+    from repro_torch.core.atoms import memory_operand, memory_stream_body
+    ring = memory_operand(block, "cuda")
+    passes = 2 * ring.slots
+    ms = graph_ms(lambda: [memory_stream_body(ring, p)
+                           for p in range(passes)], passes)
+    return ms, 2 * block / (ms * 1e-3), ring.slots
+
+
 def phase_main_path(torch, rows):
     """The emulator end to end on a Qwen2-7B-sized profile; returns the
     calibration and the device milliseconds of one iteration of each
@@ -1072,8 +1109,7 @@ def phase_main_path(torch, rows):
     from repro_torch.core import (H100_SXM, Emulator, ProfileStore,
                                   SegmentRunner, calibrate, get_spec,
                                   predict)
-    from repro_torch.core.atoms import (compute_burn_body, compute_operand,
-                                        memory_operand, memory_stream_body)
+    from repro_torch.core.atoms import compute_burn_body, compute_operand
     from repro_torch.core.schedule import FusedSegment
     from repro_torch.scenarios import generate
 
@@ -1096,14 +1132,22 @@ def phase_main_path(torch, rows):
     # device time of one iteration of each backend at the main path's shapes
     # (tile 256, 16 MiB block): the kernels' from the kernels phase (the
     # burn, and a pass over the ring), the segment loop's torch ops' from a
-    # captured chain of iterations
-    xc, xm = compute_operand(256, "cuda"), memory_operand(1 << 24, "cuda")
+    # captured chain of iterations and of passes over the "torch" ring,
+    # which fails above RING_MAX_OF_HBM x the HBM rate (L2's, not HBM's)
+    xc = compute_operand(256, "cuda")
+    ring_ms, ring_bps, ring_slots = torch_ring_pass_ms(torch)
     per_iter_ms = {
         "cuda": (rows["burn_tile"]["ms"], rows["stream_pass"]["ms"]),
         "torch": (graph_ms(lambda: chain(compute_burn_body, xc, 100), 100),
-                  graph_ms(lambda: chain(memory_stream_body, xm, 50), 50)),
+                  ring_ms),
     }
     emit("main_path", step="iteration_device_ms", **per_iter_ms)
+    emit("main_path", step="torch_memory_leg", ring_slots=ring_slots,
+         us_per_pass=ring_ms * 1e3, bytes_per_s=ring_bps,
+         share_of_hbm=ring_bps / PEAK_HBM_BPS, max_of_hbm=RING_MAX_OF_HBM)
+    if ring_bps > RING_MAX_OF_HBM * PEAK_HBM_BPS:
+        fail(f"the 'torch' memory leg streams {ring_bps:.4g} B/s, above "
+             f"{RING_MAX_OF_HBM} x the HBM rate: it reads L2")
 
     targets = {hw.name: predict(loaded, hw).ttc_max
                for hw in (get_spec(loaded.meta["ref_hw"]), H100_SXM)}
@@ -2229,7 +2273,212 @@ def phase_serve(torch, np, rows):
          token_agreement=agree.mean().item(),
          max_abs_logit_diff=(last["cuda"] - last["full"]).abs().max().item(),
          max_abs_logit=last["full"].abs().max().item())
-    return host
+    del full, last
+    return host, {"model": model, "params": params, "batch": batch}
+
+
+def qwen2_dot_flops(cfg, B: int, S: int, logits_rows: int) -> float:
+    """Analytic matmul flops of a dense forward over B x S tokens: 2 x the
+    non-embedding matmul parameters (q, k, v, o and the three MLP
+    matrices of every layer) x the tokens, plus the logits product over
+    ``logits_rows`` rows."""
+    D, F = cfg.d_model, cfg.d_ff
+    q = cfg.num_heads * cfg.head_dim
+    kv = cfg.num_kv_heads * cfg.head_dim
+    per_layer = D * q + 2 * D * kv + q * D + 3 * D * F
+    return (2.0 * per_layer * cfg.num_layers * B * S
+            + 2.0 * logits_rows * D * cfg.vocab_size)
+
+
+def timed_s(torch, fn, reps: int) -> float:
+    """Median host seconds of ``reps`` calls of ``fn``, each synchronised."""
+    import statistics
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return statistics.median(out)
+
+
+def replay_static(torch, calib, name, prof, step_s, trace_s,
+                  dev=None) -> None:
+    """Replay a static profile fused on the ``"cuda"`` backend: one segment
+    launch, device counts the plan's, consumed flops within
+    STATIC_REPLAY_TOL of the profile's; print the paper's fidelity
+    numbers beside it (no bound on their ratios)."""
+    from repro_torch.core import H100_SXM, Emulator, predict
+    em = Emulator(calib=calib, backend="cuda", device=dev)
+    want = planned_counts(em, prof)
+    zero_counters()
+    rep = em.emulate(prof)
+    torch.cuda.synchronize()
+    got = counters()
+    rel = abs(rep.consumed.flops - prof.totals.flops) / prof.totals.flops
+    emit("static", step="replay", profile=name, mode=rep.mode,
+         n_samples=rep.n_samples, counters=got,
+         consumed_flops=rep.consumed.flops, profile_flops=prof.totals.flops,
+         rel_flops_err=rel, tol=STATIC_REPLAY_TOL, emulated_ttc_s=rep.ttc_s,
+         predicted_h100_ttc_max_s=predict(prof, H100_SXM).ttc_max,
+         measured_step_s=step_s, profiled_step_s=trace_s,
+         profiling_overhead=trace_s / step_s - 1.0)
+    if rep.mode != "fused" or want["segment"] != 1 or got != want:
+        fail(f"static {name} replay ({rep.mode}) counted {got}, want {want}"
+             f" in one segment launch")
+    if not rel <= STATIC_REPLAY_TOL:
+        fail(f"static {name} replay consumed {rep.consumed.flops} flops, "
+             f"the profile {prof.totals.flops}")
+
+
+def phase_static(torch, np, calib, served, dev=None) -> None:
+    """The static watcher (``profile_step``) at Qwen2-7B's widths: (a) the
+    serve phase's full-depth bf16 prefill of its 4 prompts on the card,
+    its dot flops against the analytic count and its 28 flash launches;
+    (b) the same step on meta tensors, the same cost bit for bit, no
+    launch; (c) the train phase's 4-layer step (TRAIN_RUN, 1 x 4096
+    tokens) on the card, forward and backward samples; (d) each profile
+    replayed fused on the ``"cuda"`` emulator; (e) emulated and predicted
+    times beside the measured step and the profiling overhead.  Takes the
+    serve phase's weights out of ``served`` and frees them before (c).
+    ``dev`` is the card unless named (a CPU rehearsal names the CPU)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.run import TRAIN_RUN
+    from repro_torch.core import profile_step
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.serve.step import make_prefill_step
+    from repro_torch.train.step import init_train_state, make_train_step
+    dev = dev or torch.device("cuda")
+    model, params, batch = (served.pop(k) for k in ("model", "params",
+                                                    "batch"))
+    cfg = model.cfg
+    B, S = batch["tokens"].shape
+    prefill = make_prefill_step(model, S + SERVE_NEW_TOKENS)
+
+    def prefill_fn(p, b):
+        with torch.inference_mode():
+            return prefill(p, b)
+
+    # -- (a) the full-depth prefill on the card ---------------------------
+    prefill_fn(params, batch)
+    fk.launches = 0
+    prof, cost = profile_step(prefill_fn, params, batch,
+                              command="static-prefill-qwen2-7b",
+                              tags={"prompts": "2048/1536/1024/512"},
+                              device=dev)
+    launches = fk.launches
+    step_s = timed_s(torch, lambda: prefill_fn(params, batch),
+                     STATIC_TIMED_STEPS)
+    flash = cfg.num_layers * fref.flops(B * cfg.num_heads, S, S,
+                                        cfg.head_dim, causal=True)
+    analytic = qwen2_dot_flops(cfg, B, S, B) + flash
+    rel = abs(cost.dot_flops - analytic) / analytic
+    labels = [s_.label for s_ in prof.samples]
+    want_labels = ["glue"] + ["scan:layers"] * cfg.num_layers + ["glue"]
+    emit("static", step="prefill_on_card", batch=B, seq=S,
+         n_samples=len(labels), labels=sorted(set(labels)),
+         flops=cost.flops, dot_flops=cost.dot_flops,
+         analytic_dot_flops=analytic, flash_flops=flash, rel_dot_err=rel,
+         tol=STATIC_DOT_TOL, dot_bytes=cost.dot_bytes,
+         hbm_bytes_upper=cost.hbm_bytes, transcendentals=cost.transcendentals,
+         flash_launches=launches, memory=prof.meta["memory"],
+         trace_s=prof.meta["trace_s"], step_s=step_s,
+         op_flops=cost.op_flops)
+    if launches != cfg.num_layers:
+        fail(f"static prefill: {launches} flash launches, want "
+             f"{cfg.num_layers}")
+    if labels != want_labels:
+        fail(f"static prefill: samples {labels}, want glue, "
+             f"{cfg.num_layers} layers, glue")
+    if not rel <= STATIC_DOT_TOL:
+        fail(f"static prefill: dot flops {cost.dot_flops}, analytic "
+             f"{analytic}")
+
+    # -- (b) the same step on meta tensors ---------------------------------
+    fk.launches = 0
+    mprof, mcost = profile_step(prefill_fn, params, batch,
+                                command="static-prefill-qwen2-7b",
+                                tags={"prompts": "2048/1536/1024/512"},
+                                device="meta")
+    same = mcost == cost and [s_.to_dict() for s_ in mprof.samples] == \
+        [s_.to_dict() for s_ in prof.samples]
+    emit("static", step="prefill_on_meta", identical=same,
+         flash_launches=fk.launches, trace_s=mprof.meta["trace_s"],
+         temp_bytes=mprof.meta["memory"]["temp_bytes"])
+    if not same or fk.launches:
+        fail(f"static prefill on meta: identical {same}, "
+             f"{fk.launches} launches")
+    prefill_s = (step_s, prof.meta["trace_s"])
+    del model, params, batch, prefill, mprof
+    torch.cuda.empty_cache()
+
+    # -- (c) the 4-layer train step on the card ----------------------------
+    tcfg = dataclasses.replace(get_config("qwen2-7b"),
+                               num_layers=TRAIN_LAYERS)
+    tmodel = build_model(tcfg, TRAIN_RUN)
+    state = init_train_state(tmodel, torch.Generator(dev).manual_seed(0),
+                             device=dev)
+    g = torch.Generator(dev).manual_seed(1)
+    toks = torch.randint(0, tcfg.vocab_size, (1, TRAIN_SEQ + 1),
+                         generator=g, device=dev, dtype=torch.int32)
+    tbatch = {"tokens": toks[:, :-1].contiguous(),
+              "targets": toks[:, 1:].contiguous()}
+    step = make_train_step(tmodel, OptConfig())
+    step(state, tbatch)
+    tprof, tcost = profile_step(step, state, tbatch,
+                                command="static-train-qwen2-7b-4l",
+                                tags={"layers": str(TRAIN_LAYERS)},
+                                device=dev)
+    train_s = timed_s(torch, lambda: step(state, tbatch), STATIC_TIMED_STEPS)
+    labels = [s_.label for s_ in tprof.samples]
+    emit("static", step="train_step_on_card", layers=TRAIN_LAYERS,
+         tokens=TRAIN_SEQ, n_samples=len(labels),
+         runs={k: labels.count(k) for k in sorted(set(labels))},
+         flops=tcost.flops, dot_flops=tcost.dot_flops,
+         dot_bytes=tcost.dot_bytes, memory=tprof.meta["memory"],
+         trace_s=tprof.meta["trace_s"], step_s=train_s)
+    if labels.count("scan:layers") != TRAIN_LAYERS or \
+            labels.count("scan:layers.grad") != TRAIN_LAYERS:
+        fail(f"static train step: samples {labels}, want {TRAIN_LAYERS} "
+             f"forward and {TRAIN_LAYERS} backward layers")
+    del state, tbatch, step
+    torch.cuda.empty_cache()
+
+    # -- (d, e) replays -----------------------------------------------------
+    replay_static(torch, calib, "prefill", prof, *prefill_s, dev=dev)
+    replay_static(torch, calib, "train_step", tprof, train_s,
+                  tprof.meta["trace_s"], dev=dev)
+
+
+def phase_examples(torch) -> None:
+    """Each ``examples/torch_*.py`` on the card (its default device) as a
+    subprocess, in a scratch directory for the files it writes: exit 0,
+    and its wall time."""
+    names = sorted(f for f in os.listdir(os.path.join(ROOT, "examples"))
+                   if f.startswith("torch_") and f.endswith(".py"))
+    walls = {}
+    with tempfile.TemporaryDirectory() as d:
+        for name in names:
+            t0 = time.perf_counter()
+            out = subprocess.run(
+                [sys.executable, os.path.join(ROOT, "examples", name)],
+                cwd=d, env=src_env(), capture_output=True, text=True,
+                timeout=EXAMPLE_TIMEOUT_S)
+            walls[name] = time.perf_counter() - t0
+            last = out.stdout.strip().splitlines()[-1:]
+            emit("examples", example=name, rc=out.returncode,
+                 wall_s=walls[name], last_line=last)
+            if out.returncode != 0:
+                fail(f"examples/{name} exited {out.returncode}: "
+                     f"{out.stderr[-3000:]}")
+    emit("examples", step="all", n=len(names), wall_s=sum(walls.values()))
+    if len(names) != EXAMPLES_WANTED:
+        fail(f"{len(names)} torch examples, want {EXAMPLES_WANTED}")
 
 
 def _attn_grads(torch, fn, q, k, v, w):
@@ -3133,9 +3382,11 @@ def main() -> None:
     rows.update(phase_collective(torch, np, calib, build_info))
     fleet_profiles, fleet_refs = phase_fleet(torch, calib, per_iter_ms)
     phase_service(torch, calib, fleet_profiles, fleet_refs)
-    host = phase_serve(torch, np, rows)
+    host, served = phase_serve(torch, np, rows)
+    phase_static(torch, np, calib, served)
     phase_train(torch, np, calib)
     phase_families(torch, np, rows, calib, host)
+    phase_examples(torch)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for row in rows.values():

@@ -7,12 +7,12 @@ Paper §IV-B, on a CUDA card:
                      (emulate an app running below peak).  Backends:
                      ``"torch"`` (a loop of PyTorch ops) or ``"cuda"``, the
                      hand-written kernel in ``repro_torch.kernels.compute_atom``.
-  * MemoryAtom     — streams a target byte count through device memory
-                     (``"cuda"``: the ring entry of the kernel in
-                     ``repro_torch.kernels.memory_atom``, in-place passes
-                     over a ring of blocks several times the L2's size,
-                     made once per atom; ``"torch"``: a scaled copy loop,
-                     whose block stays in L2 on a card).
+  * MemoryAtom     — streams a target byte count through device memory:
+                     in-place passes over a ring of blocks several times
+                     the L2's size, made once per atom (``"cuda"``: the
+                     ring entry of the kernel in
+                     ``repro_torch.kernels.memory_atom``, one launch a
+                     call; ``"torch"``: one in-place ``mul_`` a pass).
   * CollectiveAtom — moves an exact wire-byte count over a mesh axis with
                      all-reduce, all-gather or collective-permute (the
                      paper's "planned" network atom).  A mesh's shards all
@@ -49,6 +49,7 @@ from repro_torch.kernels.collective import ops as coll_ops
 from repro_torch.kernels.collective import ref as coll_ref
 from repro_torch.kernels.compute_atom import ops as catom_ops
 from repro_torch.kernels.memory_atom.kernel import Ring, stream_ring
+from repro_torch.kernels.memory_atom.ref import SCALE as STREAM_SCALE
 
 #: atom backends: a loop of PyTorch ops, or the hand-written CUDA kernels
 #: (which run their plain versions on CPU tensors)
@@ -297,17 +298,19 @@ def compute_operand(tile: int, device: DeviceLike = None) -> torch.Tensor:
     return torch.eye(tile, dtype=torch.float32, device=resolve(device)) * 0.5
 
 
-def memory_stream_body(c: torch.Tensor) -> torch.Tensor:
-    """One memory-atom iteration: a full read+write pass over the block."""
-    return c * 1.0000001
+def memory_stream_body(ring: Ring, p: int) -> torch.Tensor:
+    """One memory-atom iteration: pass ``p`` of ``ring``, a full read+write
+    pass in place over its slot ``p % slots``.  No pass touched that slot
+    for ``slots - 1`` passes, so on a card it reads device memory, not L2
+    (on the CPU the ring has one slot: the chained stream)."""
+    return ring.slot(p).mul_(STREAM_SCALE)
 
 
-def memory_operand(block_bytes: int,
-                   device: DeviceLike = None) -> torch.Tensor:
-    """The stream loop's carry (one block); shared with the segment loop
-    for the same reason as ``compute_operand``."""
-    return torch.ones((block_bytes // 4,), dtype=torch.float32,
-                      device=resolve(device))
+def memory_operand(block_bytes: int, device: DeviceLike = None) -> Ring:
+    """The stream loop's ring, the same ring the ``"cuda"`` kernel streams;
+    shared with the segment loop for the same reason as
+    ``compute_operand``."""
+    return Ring(block_bytes, resolve(device))
 
 
 def _torch_burn(x: torch.Tensor, iters: int) -> torch.Tensor:
@@ -316,9 +319,12 @@ def _torch_burn(x: torch.Tensor, iters: int) -> torch.Tensor:
     return x
 
 
-def _torch_stream(x: torch.Tensor, iters: int) -> torch.Tensor:
-    for _ in range(iters):
-        x = memory_stream_body(x)
+def _torch_stream(ring: Ring, iters: int) -> torch.Tensor:
+    """``iters`` >= 1 passes over ``ring``, numbered on from its counter;
+    returns the block the last pass wrote."""
+    start = ring.claim(iters)
+    for p in range(start, start + iters):
+        x = memory_stream_body(ring, p)
     return x
 
 
@@ -420,7 +426,7 @@ class MemoryAtom(Atom):
         return self._cached(key, lambda: self._build_plan(iters))
 
     def ring(self) -> Ring:
-        """The ``"cuda"`` backend's ring, made (and filled) at first use and
+        """The ring both backends stream, made (and filled) at first use and
         shared by every plan of this atom: a pass streams a block that no
         pass touched for ``slots - 1`` passes, so it reads device memory,
         not L2.  Never re-copied per call, which would be device traffic
@@ -428,16 +434,16 @@ class MemoryAtom(Atom):
         if self._ring is None:
             with self._ring_lock:
                 if self._ring is None:
-                    self._ring = Ring(self.block_bytes, self.device)
+                    self._ring = memory_operand(self.block_bytes,
+                                                self.device)
         return self._ring
 
     def _build_plan(self, iters: int) -> Plan:
         amount = iters * self.bytes_per_iter()
+        ring = self.ring()
         if self.backend == "cuda":
-            ring = self.ring()
             return Plan(lambda: stream_ring(ring, passes=iters), amount)
-        x = memory_operand(self.block_bytes, self.device)
-        return Plan(lambda: _torch_stream(x, iters), amount)
+        return Plan(lambda: _torch_stream(ring, iters), amount)
 
     def seconds(self, nbytes: float, hw: HardwareSpec) -> float:
         bw = hw.hbm_bw * hw.hbm_derate

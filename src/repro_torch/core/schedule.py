@@ -43,7 +43,7 @@ import numpy as np
 from repro_torch.core.atoms import (CollectiveQuant, ComputeAtom,
                                     MemoryAtom, check_backend,
                                     compute_burn_body, compute_operand,
-                                    memory_operand, memory_stream_body)
+                                    memory_stream_body)
 from repro_torch.core.metrics import ResourceVector
 from repro_torch.device import DeviceLike, resolve, sync
 from repro_torch.kernels.memory_atom.kernel import Ring
@@ -289,23 +289,24 @@ class SegmentRunner:
         after its sync.
       * ``"torch"``: the padded table is walked on the host and each row
         issues its iterations as PyTorch ops — ``row[0]`` compute-burn
-        iterations on the tile, then ``row[1]`` memory-stream iterations on
-        the block, then ``row[2]`` steps of the collective atom's loop
-        body — with one sync at the end of the segment; on a card every
+        iterations on the tile, then ``row[1]`` in-place passes over the
+        memory atom's ring, then ``row[2]`` steps of the collective atom's
+        loop body — with one sync at the end of the segment; on a card every
         iteration is several CUDA launches issued from the host.
 
     Runs are specialized to the carries a segment actually needs — a
     compute-only segment does not touch the (potentially tens-of-MB)
     memory block, matching the per-sample path where a zero-iteration
-    amount plans to a noop.  ``ring`` returns the ring the ``"cuda"``
-    passes stream: the Emulator passes its ``MemoryAtom.ring``, so its
-    per-sample plans and its segments share one ring and one pass count;
-    a runner built alone streams the ring of a ``MemoryAtom`` of its own.
-    Safe to share across threads: operand init is guarded, the burn's and
-    the stream's operands are read-only, ring passes are numbered under
-    the ring's lock, and the ``"cuda"`` wire carry, stepped in place by
-    launches that serialize on the stream, starts at ones, a fixed point
-    of every kind's step.
+    amount plans to a noop.  ``ring`` returns the ring the memory passes
+    of either backend stream: the Emulator passes its ``MemoryAtom.ring``,
+    so its per-sample plans and its segments share one ring and one pass
+    count; a runner built alone streams the ring of a ``MemoryAtom`` of
+    its own.  Safe to share across threads: operand init is guarded, the
+    burn's operand is read-only, ring passes are numbered under the
+    ring's lock (two threads streaming one ring leave values that depend
+    on the interleaving, never other amounts), and the ``"cuda"`` wire
+    carry, stepped in place by launches that serialize on the stream,
+    starts at ones, a fixed point of every kind's step.
 
     ``collective`` (a mesh-bound ``CollectiveAtom``) supplies the
     per-iteration wire step and its fixed-block carry; without one,
@@ -325,7 +326,6 @@ class SegmentRunner:
         self.collective = collective
         self._lock = threading.Lock()
         self._xc = None
-        self._xm = None
         self._xcoll = None
         self._ring = ring or MemoryAtom(block_bytes=block_bytes,
                                         backend=backend,
@@ -337,16 +337,6 @@ class SegmentRunner:
                 if self._xc is None:
                     self._xc = compute_operand(self.tile, self.device)
         return self._xc
-
-    def _operands(self):
-        if self._xm is None:
-            self._compute_operand()
-            with self._lock:
-                if self._xm is None:
-                    # atom-shared constructors: a fused iteration must cost
-                    # exactly what an atom iteration costs
-                    self._xm = memory_operand(self.block_bytes, self.device)
-        return self._xc, self._xm
 
     def set_collective(self, atom) -> None:
         """Swap the collective atom, dropping the collective carry: it lies
@@ -363,21 +353,25 @@ class SegmentRunner:
         return self._xcoll
 
     @staticmethod
-    def _segment(y, m, w, table: np.ndarray, coll_step=None):
-        """Walk ``table`` on the host; ``y`` (the compute carry), ``m``
-        (the memory carry) or ``w`` (the collective carry, stepped by
-        ``coll_step``) is None when no row uses it."""
+    def _segment(y, ring, w, table: np.ndarray, coll_step=None):
+        """Walk ``table`` on the host; ``y`` (the compute carry), ``ring``
+        (the memory atom's ring; its passes are numbered on from its
+        counter) or ``w`` (the collective carry, stepped by ``coll_step``)
+        is None when no row uses it.  Returns the carries, the ring's as
+        the block its last pass wrote."""
+        slot = None
         for ci, mi, wi in table.tolist():
             if y is not None:
                 for _ in range(ci):
                     y = compute_burn_body(y)
-            if m is not None:
-                for _ in range(mi):
-                    m = memory_stream_body(m)
+            if ring is not None and mi:
+                start = ring.claim(mi)
+                for p in range(start, start + mi):
+                    slot = memory_stream_body(ring, p)
             if w is not None:
                 for _ in range(wi):
                     w = coll_step(w)
-        return y, m, w
+        return y, slot, w
 
     def launch(self, segment: FusedSegment):
         """Issue the whole segment asynchronously; returns the unsynced
@@ -407,11 +401,12 @@ class SegmentRunner:
                 table, x=self._compute_operand() if with_c else None,
                 ring=self._ring() if with_m else None, w=w,
                 kind=self.collective.kind if with_coll else "all-reduce")
-        xc = xm = None
-        if with_c or with_m:       # wire-only segments skip the (big)
-            xc, xm = self._operands()  # compute/memory operands entirely
+        # wire-only segments skip the (big) compute and memory operands;
+        # the ring is the memory atom's, so a fused pass costs what an atom
+        # pass costs
         return SegmentRun(*self._segment(
-            xc if with_c else None, xm if with_m else None, w, table,
+            self._compute_operand() if with_c else None,
+            self._ring() if with_m else None, w, table,
             self.collective.loop_body() if with_coll else None))
 
     def run(self, segment: FusedSegment) -> bool:

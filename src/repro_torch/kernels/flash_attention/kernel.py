@@ -20,6 +20,11 @@ They are validated only; the kernel sizes its own tiles, as
 
 ``flash_attention`` launches the kernel for CUDA tensors and the plain
 version (``ref.flash_attention``) for CPU tensors; any other input raises.
+It reaches them through the custom op ``synapse::flash_attention``, so
+that a ``TorchDispatchMode`` (the static profiler's ``OpCounter``) sees a
+launch as one op, which a ctypes call alone would hide from it, and so
+that meta tensors take its fake (shape-only) version, which launches
+nothing and never reads ``data_ptr``.
 """
 from __future__ import annotations
 
@@ -70,7 +75,7 @@ def check_input(q, k, v, *, group: int, block_q: int,
                          f"sequences, got Sq={Sq}, block_q={block_q}, "
                          f"Sk={Sk}, block_kv={block_kv}")
     devices = {q.device, k.device, v.device}
-    if len(devices) != 1 or q.device.type not in ("cpu", "cuda"):
+    if len(devices) != 1 or q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"flash_attention runs with q, k, v on one cpu or "
                          f"cuda device, got {sorted(map(str, devices))}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
@@ -84,13 +89,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     softcap: Optional[float] = None, block_q: int = 512,
                     block_kv: int = 512, group: int = 1) -> torch.Tensor:
     """q: [BH, Sq, hd]; k, v: [BKV, Sk, hd] with BH == BKV * group."""
-    global launches
     check_input(q, k, v, group=group, block_q=block_q, block_kv=block_kv)
     if window is not None and (not isinstance(window, int) or window < 0):
         raise ValueError(f"window must be None or an int >= 0, got "
                          f"{window!r}")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"softcap must be None or > 0, got {softcap!r}")
+    return _flash_op(q, k, v, bool(causal), window,
+                     None if softcap is None else float(softcap), group)
+
+
+@torch.library.custom_op("synapse::flash_attention", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool, window: Optional[int], softcap: Optional[float],
+              group: int) -> torch.Tensor:
+    """The checked call: the plain version on the CPU, one kernel launch on
+    a card."""
+    global launches
     if q.device.type == "cpu":
         return ref.flash_attention(q, k, v, causal=causal, window=window,
                                    softcap=softcap, group=group)
@@ -107,3 +122,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     build.check(lib, err, "flash_attention")
     launches += 1
     return out
+
+
+@_flash_op.register_fake
+def _(q, k, v, causal, window, softcap, group):
+    return torch.empty_like(q)

@@ -113,10 +113,15 @@ def ring_slots(block_bytes: int, device) -> int:
     """Blocks a ring holds: on a card the fewest whose bytes reach
     ``L2_MULTIPLE`` x its L2, so a pass never finds its block in L2 (13 of
     16 MiB for the H100's 50 MiB); on the CPU one, where there is no device
-    cache to outrun and the ring is then the chained stream."""
-    if torch.device(device).type != "cuda":
+    cache to outrun and the ring is then the chained stream.  The L2's
+    size is PyTorch's reading of the card (the same attribute
+    ``l2_cache_bytes`` reads through the kernel library), so the
+    ``"torch"`` backend's ring needs no kernel build."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
         return 1
-    return max(1, -(-L2_MULTIPLE * l2_cache_bytes(device) // block_bytes))
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    return max(1, -(-L2_MULTIPLE * l2 // block_bytes))
 
 
 class Ring:

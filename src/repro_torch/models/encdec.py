@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.run import RunConfig
+from repro_torch.core.op_analysis import close_trip, open_trip
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.models.layers import (_project, attend_blocked,
                                        attend_decode, attend_full, attention,
@@ -130,8 +131,13 @@ def encode(params, src_embeds, *, cfg: ModelConfig, run: RunConfig):
         return shard(xx, "batch", "seq_shard", "embed")
 
     layers = params["enc_layers"]
+    looped = cfg.num_encoder_layers > 1     # XLA inlines a one-trip loop
     for li in range(cfg.num_encoder_layers):
+        if looped:
+            x = open_trip(x, "encoder")
         x = _remat_wrap(body, run)(x, map_tensors(layers, lambda p: p[li]))
+        if looped:
+            x = close_trip(x, "encoder")
     return rmsnorm(params["enc_ln_final"], x, cfg.norm_eps)
 
 
@@ -185,19 +191,25 @@ def forward_encdec(params, batch, *, cfg: ModelConfig, run: RunConfig,
         return xx, self_nc, new_kv
 
     layers = params["dec_layers"]
+    looped = cfg.num_layers > 1
     for li in range(cfg.num_layers):
+        if looped:
+            x = open_trip(x, "decoder")
         pl = map_tensors(layers, lambda p: p[li])
         if cache is None:
             x, _, _ = _remat_wrap(
                 lambda c, p_: body(c, p_, None, None), run)(x, pl)
-            continue
-        self_cl = map_tensors(cache["self"], lambda c: c[li])
-        ck, cv = cache["cross_k"][li], cache["cross_v"][li]
-        x, self_nc, new_kv = _remat_wrap(body, run)(x, pl, self_cl, (ck, cv))
-        _cache_set(self_cl, self_nc)
-        if new_kv is not None:
-            ck.copy_(new_kv[0])
-            cv.copy_(new_kv[1])
+        else:
+            self_cl = map_tensors(cache["self"], lambda c: c[li])
+            ck, cv = cache["cross_k"][li], cache["cross_v"][li]
+            x, self_nc, new_kv = _remat_wrap(body, run)(x, pl, self_cl,
+                                                        (ck, cv))
+            _cache_set(self_cl, self_nc)
+            if new_kv is not None:
+                ck.copy_(new_kv[0])
+                cv.copy_(new_kv[1])
+        if looped:
+            x = close_trip(x, "decoder")
 
     x = rmsnorm(params["ln_final"], x, cfg.norm_eps)
     return x, cache, {}

@@ -4,7 +4,7 @@ Hymba (arXiv:2411.13676): each layer runs attention heads and mamba heads in
 *parallel* on the same normed input; the two outputs are RMS-normalized and
 averaged with learned per-channel scales, then a SwiGLU MLP follows.  Three
 layers (first / middle / last) use full global attention, the rest a sliding
-window: the flag arrives as a Python bool from ``transformer._plan_layers``,
+window: the flag arrives as a Python bool from ``transformer._plan_trips``,
 so ``attn_impl="cuda"`` gets a static window.  Meta-tokens from the paper
 are out of scope, as in the JAX package.
 """

@@ -73,7 +73,10 @@ def _route(router, x, cfg: ModelConfig):
         gate_vals.sum(dim=-1, keepdim=True), min=1e-9)       # renormalize
 
     # --- position within each expert's capacity buffer (per group) ---------
-    oh = F.one_hot(expert_idx, E)                            # [B,S,K,E]
+    # ``jax.nn.one_hot``'s comparison: ``F.one_hot`` reads the indices'
+    # range first (a sync on a card, and nothing to read on meta tensors)
+    oh = (expert_idx[..., None] == torch.arange(
+        E, device=expert_idx.device)).long()                 # [B,S,K,E]
     ohf = oh.reshape(B, S * K, E)                            # slot-major order
     pos_in_e = torch.cumsum(ohf, dim=1) - ohf                # [B,S*K,E]
     pos = torch.gather(pos_in_e.reshape(B, S, K, E), -1,

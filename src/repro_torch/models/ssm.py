@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.op_analysis import close_trip, open_trip
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.models.params import PDef
 from repro_torch.parallel.sharding import shard
@@ -148,8 +149,12 @@ def ssd_chunked(x, dt, A, Bm, Cm, *, chunk: int,
         s = initial_state.to(f32)
     s_in = []
     for c in range(nc):
+        if nc > 1:                  # the JAX package's scan: a trip a chunk
+            s = open_trip(s, "ssd_chunks")
         s_in.append(s)                                       # entering chunk c
         s = s * torch.exp(seg_total[:, c])[:, :, None, None] + states[:, c]
+        if nc > 1:
+            s = close_trip(s, "ssd_chunks")
     s_in = torch.stack(s_in, dim=1)                          # [B,nc,H,P,N]
 
     y_inter = torch.einsum("bcqhn,bchpn->bcqhp",

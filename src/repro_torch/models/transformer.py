@@ -10,7 +10,9 @@ leading layer dim too, ``{"attn": {"k", "v": [L,B,T,Hk,hd], "pos":
 [L,B]}}``, and each layer's new entries are written into them in place.
 The activation remat policy (``RunConfig.remat``) wraps each layer in
 ``torch.utils.checkpoint``, as the JAX package wraps its scan body in
-``jax.checkpoint``.
+``jax.checkpoint``.  Each trip of a scan is marked for the static
+profiler (``core.op_analysis.open_trip``/``close_trip``), which samples
+a step by layer as the JAX package's walker samples by scan trip.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.run import RunConfig
+from repro_torch.core.op_analysis import close_trip, open_trip
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (AttnRun, attention, def_attention,
@@ -216,20 +219,24 @@ def layer_plan(cfg: ModelConfig):
     return plan
 
 
-def _plan_layers(cfg: ModelConfig):
-    """(layer index, static is_local flag) in execution order."""
+def _plan_trips(cfg: ModelConfig):
+    """(looped, [(layer index, static is_local flag), ...]) per trip of the
+    JAX package's scans, in execution order: a "scan" group's trip is one
+    layer, a "pair_scan" group's an (even, odd) pair, a "single" group one
+    trip outside any loop.  ``looped`` is whether the trip belongs to a
+    scan of two trips or more: XLA inlines a loop that runs once, so the
+    static profiler's samples (``core.op_analysis``) follow only those."""
     for group in layer_plan(cfg):
         if group[0] == "single":
             _, li, flag = group
-            yield li, flag
+            yield False, [(li, flag)]
         elif group[0] == "pair_scan":
             for i in range(group[1]):
-                yield 2 * i, True
-                yield 2 * i + 1, False
+                yield group[1] > 1, [(2 * i, True), (2 * i + 1, False)]
         else:
             _, start, count, flag = group
             for li in range(start, start + count):
-                yield li, flag
+                yield count > 1, [(li, flag)]
 
 
 def forward_stack(params, batch, *, cfg: ModelConfig, run: RunConfig,
@@ -260,19 +267,25 @@ def forward_stack(params, batch, *, cfg: ModelConfig, run: RunConfig,
 
     layers = params["layers"]
     aux_acc: Dict[str, Any] = {}
-    for li, flag in _plan_layers(cfg):
-        pl = map_tensors(layers, lambda p: p[li])
-        cl = None if cache is None else map_tensors(cache, lambda c: c[li])
-        # the flag is bound as a default: a remat recompute calls the body
-        # after the loop has moved on
-        x, nc, aux = _remat_wrap(
-            lambda c, p_, cl_, f=flag: block_fn(
-                p_, c, positions=positions, local_flag=f, cache_layer=cl_,
-                decode=decode), run)(x, pl, cl)
-        if nc is not None:
-            _cache_set(cl, nc)
-        for k, v in aux.items():
-            aux_acc[k] = aux_acc.get(k, 0.0) + v.sum()
+    for looped, trip in _plan_trips(cfg):
+        if looped:
+            x = open_trip(x, "layers")
+        for li, flag in trip:
+            pl = map_tensors(layers, lambda p: p[li])
+            cl = None if cache is None else map_tensors(cache,
+                                                        lambda c: c[li])
+            # the flag is bound as a default: a remat recompute calls the
+            # body after the loop has moved on
+            x, nc, aux = _remat_wrap(
+                lambda c, p_, cl_, f=flag: block_fn(
+                    p_, c, positions=positions, local_flag=f,
+                    cache_layer=cl_, decode=decode), run)(x, pl, cl)
+            if nc is not None:
+                _cache_set(cl, nc)
+            for k, v in aux.items():
+                aux_acc[k] = aux_acc.get(k, 0.0) + v.sum()
+        if looped:
+            x = close_trip(x, "layers")
 
     x = rmsnorm(params["ln_final"], x, cfg.norm_eps)
     return x, cache, aux_acc
@@ -280,11 +293,13 @@ def forward_stack(params, batch, *, cfg: ModelConfig, run: RunConfig,
 
 def _cache_set(view, new):
     """Copy a layer's new cache entries into its views of the stacked
-    cache, skipping entries that already are those views."""
+    cache, skipping entries that already are those views (the same
+    storage at the same offset: meta tensors have no addresses)."""
     if isinstance(view, dict):
         for k in view:
             _cache_set(view[k], new[k])
-    elif new.data_ptr() != view.data_ptr():
+    elif (new.untyped_storage()._cdata != view.untyped_storage()._cdata
+          or new.storage_offset() != view.storage_offset()):
         view.copy_(new)
 
 

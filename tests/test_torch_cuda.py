@@ -360,6 +360,51 @@ def test_ring_outruns_the_l2(dev):
     assert (ring.slots - 1) * (1 << 24) < 4 * mk.l2_cache_bytes(dev)
 
 
+def test_torch_memory_leg_streams_device_memory(dev):
+    """The ``"torch"`` backend's memory leg passes in place over the atom's
+    ring (4 x the L2's bytes): a pass faster than 1.05 x the HBM rate would
+    be reading L2, and fails here as in ``chip_smoke.py``'s main path."""
+    from repro_torch.core.atoms import MemoryAtom
+    ring = MemoryAtom(block_bytes=1 << 24, backend="torch", device=dev).ring()
+    assert ring.slots * (1 << 24) >= 4 * mk.l2_cache_bytes(dev)
+    ms, rate, slots = chip_smoke.torch_ring_pass_ms(torch)
+    assert slots == ring.slots
+    assert rate <= chip_smoke.RING_MAX_OF_HBM * chip_smoke.PEAK_HBM_BPS, ms
+
+
+def test_static_profile_on_the_card_equals_meta_and_cpu(dev):
+    """``profile_step`` counts the same on the card, on meta tensors and on
+    the CPU; on the card the flash kernel launches once a layer, and its
+    custom op is charged the pairs its mask leaves."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.core import profile_step
+    cfg = ModelConfig(name="tiny-lm", family="dense", num_layers=2,
+                      d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
+                      d_ff=128, vocab_size=128, tie_embeddings=True)
+    model = build_model(cfg, RunConfig(attn_impl="cuda", param_dtype="float32",
+                                       compute_dtype="float32"))
+    params = model.init(torch.Generator(dev).manual_seed(0), dev)
+    batch = {"tokens": torch.randint(0, 128, (2, 32), dtype=torch.int32,
+                                     device=dev)}
+
+    def fn(p, b):
+        with torch.inference_mode():
+            return model.logits(p, model.forward(p, b)[0])
+
+    costs, launches = {}, {}
+    for where in ("cuda", "meta", "cpu"):
+        before = fk.launches
+        prof, costs[where] = profile_step(fn, params, batch, command="t",
+                                          device=where)
+        launches[where] = fk.launches - before
+        assert [s.label for s in prof.samples] == [
+            "glue", "scan:layers", "scan:layers", "glue"]
+    assert costs["cuda"] == costs["meta"] == costs["cpu"]
+    assert launches == {"cuda": 2, "meta": 0, "cpu": 0}
+    assert costs["cuda"].op_flops["synapse.flash_attention"] == \
+        2 * fref.flops(8, 32, 32, 16, causal=True)
+
+
 # (BH, BKV, Sq, Sk, hd, causal, window, softcap): the JAX package's SWEEP
 # (tests/test_kernels.py), Gemma2's head dim, a ragged length, then unequal
 # lengths and windows that leave rows with no visible key

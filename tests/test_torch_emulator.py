@@ -181,6 +181,58 @@ def test_cuda_memory_atom_streams_planned_passes():
     np.testing.assert_array_equal(out.numpy(), want)
 
 
+def _ring_values(slots, passes):
+    """Slot values of a ring of ones after ``passes`` in-place passes:
+    pass p scales slot p % slots once, in float32."""
+    want = np.ones(slots, np.float32)
+    for p in range(passes):
+        want[p % slots] *= np.float32(1.0000001)
+    return want
+
+
+def test_torch_memory_atom_streams_its_ring_in_place():
+    """The ``"torch"`` memory leg passes over the atom's ring in place (the
+    ``"cuda"`` ring's plain version), one slot on the CPU: its plan keys
+    and amounts are the reference's, its values the chained stream's."""
+    iters = 3
+    atom = T.MemoryAtom(block_bytes=BLOCK, backend="torch", device="cpu")
+    ref_atom = R.MemoryAtom(block_bytes=BLOCK)
+    plan = atom.plan(iters * BPI)
+    assert plan.amount == ref_atom.plan(iters * BPI).amount == iters * BPI
+    ring = atom.ring()
+    assert ring.slots == 1 and ring.passes == 0
+    out = plan.launch()
+    assert out.data_ptr() == ring.data.data_ptr()       # in place
+    assert ring.passes == iters
+    np.testing.assert_array_equal(out.numpy(), np.full(
+        BLOCK // 4, _ring_values(1, iters)[0]))
+    plan.launch()
+    assert ring.passes == 2 * iters
+
+
+def test_torch_stream_numbers_passes_over_a_ring_of_slots():
+    """On a card the ring has several slots: pass p streams slot
+    p % slots, numbered on across the atom's plans and the fused loop."""
+    from repro_torch.core.atoms import memory_stream_body
+    from repro_torch.kernels.memory_atom.kernel import Ring
+    ring = Ring(BLOCK, "cpu", slots=3)
+    for p in range(4):
+        assert memory_stream_body(ring, p).data_ptr() == \
+            ring.data[p % 3].data_ptr()
+    ring = Ring(BLOCK, "cpu", slots=3)
+    atom = T.MemoryAtom(block_bytes=BLOCK, backend="torch", device="cpu")
+    atom._ring = ring
+    atom.plan(3 * BPI).launch()                          # passes 0, 1, 2
+    runner = T.SegmentRunner(tile=TILE, block_bytes=BLOCK, device="cpu",
+                             ring=atom.ring)
+    run = runner.launch(T.FusedSegment(table=[[0, 2, 0], [1, 0, 0],
+                                              [0, 5, 0]]))   # 3 .. 9
+    assert ring.passes == 10
+    assert run.slot.data_ptr() == ring.data[9 % 3].data_ptr()
+    np.testing.assert_array_equal(ring.data[:, 0].numpy(),
+                                  _ring_values(3, 10))
+
+
 @pytest.mark.parametrize("table", [
     [[3, 0, 0], [1, 0, 0], [0, 0, 0]],          # compute-only segment
     [[0, 2, 0], [0, 5, 0]],                      # memory-only segment

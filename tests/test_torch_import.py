@@ -19,6 +19,7 @@ SLICE = [
     "repro_torch.core.atoms", "repro_torch.core.schedule",
     "repro_torch.core.emulator", "repro_torch.core.predictor",
     "repro_torch.core.store", "repro_torch.core.watchers",
+    "repro_torch.core.op_analysis", "repro_torch.core.static_profiler",
     "repro_torch.obs", "repro_torch.obs.clock",
     "repro_torch.obs.recorder", "repro_torch.obs.metrics",
     "repro_torch.obs.trace",
@@ -111,6 +112,10 @@ def _port_files():
             if f.endswith(".py"):
                 yield os.path.join(d, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    examples = os.path.join(ROOT, "examples")
+    for f in sorted(os.listdir(examples)):
+        if f.startswith("torch_") and f.endswith(".py"):
+            yield os.path.join(examples, f)
 
 
 _FORBIDDEN = re.compile(r"^\s*(import jax\b|from jax\b|import repro\b(?!_)"
@@ -136,7 +141,8 @@ def test_default_device_raises_without_cuda(tmp_path):
         pytest.skip("a CUDA device is present: the default is usable")
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.configs.run import SERVE_RUN
-    from repro_torch.core import (Emulator, HostCalibration, calibrate)
+    from repro_torch.core import (Emulator, HostCalibration, calibrate,
+                                  profile_step)
     from repro_torch.core.atoms import ComputeAtom, MemoryAtom
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.model_zoo import build_model
@@ -178,6 +184,8 @@ def test_default_device_raises_without_cuda(tmp_path):
                  lambda: frontends.vision_patch_embeddings(
                      torch.Generator(), 1, 4, 8),
                  lambda: init_mamba_cache(families[0].cfg, 1),
+                 lambda: profile_step(torch.add, torch.ones(1), 1,
+                                      command="default-device"),
                  *(lambda m=m: m.init_cache(1, 8) for m in families)):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
