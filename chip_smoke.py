@@ -136,6 +136,18 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
              with the table's device counts.  Mamba-2's SSD scan against
              its recurrent oracle at its heads and prefill then decode
              against one forward; one MoE training step
+  dryrun     the dry-run (``repro_torch.launch.dryrun``): Qwen2-7B's
+             train_4k, prefill_32k, decode_32k and long_500k (a skip
+             record) and Qwen2-1.5B's decode_32k on the 16 x 16 mesh,
+             Qwen2-72B's decode_32k on 2 x 16 x 16, each on DTensors with
+             meta shards over a fake process group of 256 or 512 ranks:
+             memory, walker and seconds, and ``predict`` on the H100 of the
+             artifact; then two cells that fit one card, run on a 1 x 1
+             mesh on meta and for real on the card with bf16 weights from
+             seed 0 (Qwen2-7B's prefill of 4 x 2048 tokens at full depth,
+             the train phase's 4-layer step of 1 x 4096 tokens): argument
+             bytes exact, the card's counted flops within 1e-9, its peak of
+             allocated memory within 15% of ``per_device_total``
   examples   every ``examples/torch_*.py`` on the card as a subprocess:
              exit 0, wall time
 
@@ -344,6 +356,26 @@ MOE_TRAIN_LAYERS, MOE_TRAIN_SEQ = 2, 4096
 STATIC_DOT_TOL, STATIC_REPLAY_TOL, STATIC_TIMED_STEPS = 1e-9, 1e-6, 3
 # the examples phase: every examples/torch_*.py, each within its timeout
 EXAMPLES_WANTED, EXAMPLE_TIMEOUT_S = 9, 600
+# the dry-run (src/repro_torch/launch/dryrun.py): production cells on the
+# 16 x 16 mesh (256 fake ranks) and Qwen2-72B's decode on 2 x 16 x 16
+# (512), each (arch, shape, multi-pod); a decode cell's per-device bytes
+# must fit the 80 GB of an H100
+DRYRUN_CELLS = (("qwen2-7b", "train_4k", False),
+                ("qwen2-7b", "prefill_32k", False),
+                ("qwen2-7b", "decode_32k", False),
+                ("qwen2-7b", "long_500k", False),
+                ("qwen2-1.5b", "decode_32k", False),
+                ("qwen2-72b", "decode_32k", True))
+DRYRUN_DEVICE_BYTES = 80e9
+# the dry-run on a 1 x 1 mesh against the same step on the card: argument
+# bytes exact, flops within DRYRUN_FLOPS_TOL (integers summed in float64
+# in other orders), the card's peak of allocated memory within
+# DRYRUN_MEMORY_TOL of per_device_total (the caching allocator rounds
+# each block up, which the counter cannot see: the card's peaks came to
+# 1.00005-1.0017 of the prediction, PERF.md §6, so 1% still fails a
+# prediction that leaves out one loss chunk's logits); the whole phase
+# within DRYRUN_PHASE_S
+DRYRUN_FLOPS_TOL, DRYRUN_MEMORY_TOL, DRYRUN_PHASE_S = 1e-9, 0.01, 150.0
 
 
 def emit(phase: str, **fields) -> None:
@@ -2455,6 +2487,145 @@ def phase_static(torch, np, calib, served, dev=None) -> None:
                   tprof.meta["trace_s"], dev=dev)
 
 
+def dryrun_card_check(torch, name, cfg, shape, run, make_args, dev):
+    """One cell that fits the card: the dry-run on a 1 x 1 mesh on meta,
+    then the same step for real on ``dev`` with the arguments
+    ``make_args(model)`` makes there.  Fails unless the argument bytes
+    are the dry-run's, the card's counted flops within DRYRUN_FLOPS_TOL
+    of the walker's and its peak of allocated memory (above what was
+    allocated before the arguments) within DRYRUN_MEMORY_TOL of
+    ``per_device_total``."""
+    from torch.utils._pytree import tree_leaves
+    from repro_torch.core import op_analysis
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_device_mesh
+    mesh = fake_device_mesh((1, 1), ("data", "model"))
+    low, meta = dryrun.lower_cell(cfg, shape, mesh, run)
+    rec = dryrun.analyze(low, mesh, meta)
+    step, _, _, _ = dryrun.cell_step(cfg, shape, None, run)
+    torch.cuda.synchronize()
+    pre = torch.cuda.memory_allocated(dev)
+    args = make_args(dev)
+    arg_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(args)
+                    if isinstance(t, torch.Tensor))
+    step(*args)                                   # warm-up: cuBLAS, caches
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    counter, out = op_analysis.count_ops(step, *args)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - pre
+    del out
+    flops = counter.total.flops
+    rel = abs(flops - rec["walker"]["flops"]) / rec["walker"]["flops"]
+    predicted = rec["memory"]["per_device_total"]
+    emit("dryrun", step="card_check", cell=name, mesh=rec["mesh"],
+         argument_bytes=rec["memory"]["argument_bytes"],
+         card_argument_bytes=arg_bytes, walker_flops=rec["walker"]["flops"],
+         card_flops=flops, rel_flops_err=rel, tol=DRYRUN_FLOPS_TOL,
+         predicted_bytes=predicted, card_peak_bytes=peak,
+         peak_ratio=peak / predicted, memory_tol=DRYRUN_MEMORY_TOL,
+         memory=rec["memory"], analysis_s=rec["walker"]["analysis_s"],
+         card_counted_step_s=step_s)
+    if arg_bytes != rec["memory"]["argument_bytes"]:
+        fail(f"dryrun {name}: {arg_bytes} argument bytes on the card, "
+             f"{rec['memory']['argument_bytes']} in the dry-run")
+    if not rel <= DRYRUN_FLOPS_TOL:
+        fail(f"dryrun {name}: the card counted {flops} flops, the dry-run "
+             f"{rec['walker']['flops']}")
+    if not abs(peak / predicted - 1.0) <= DRYRUN_MEMORY_TOL:
+        fail(f"dryrun {name}: the card peaked at {peak} bytes, the dry-run "
+             f"predicted {predicted}")
+    del args
+    torch.cuda.empty_cache()
+
+
+def phase_dryrun(torch, dev=None) -> None:
+    """The dry-run: (a) the production cells of DRYRUN_CELLS through
+    ``dryrun.run_cell`` on fake meshes of 256 and 512 ranks, each
+    artifact's memory, walker and seconds, and ``predict`` on the H100 of
+    ``from_dryrun_artifact``; fails if a cell is not ok, if its mesh is
+    not 256 or 512 devices, or if a decode cell's ``per_device_total``
+    reaches DRYRUN_DEVICE_BYTES.  (b) ``dryrun_card_check`` of Qwen2-7B's
+    prefill of SERVE_B x SERVE_S tokens at full depth (SERVE_RUN) and the
+    train phase's TRAIN_LAYERS-layer step of 1 x TRAIN_SEQ tokens
+    (TRAIN_RUN).  Ends the fake process group."""
+    import dataclasses
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.run import SERVE_RUN, TRAIN_RUN
+    from repro_torch.core import (H100_SXM, from_dryrun_artifact,
+                                  predict_resources)
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import close_fake_world
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.step import init_train_state
+    dev = dev or torch.device("cuda")
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="dryrun") as out:
+        for arch, shape, multi_pod in DRYRUN_CELLS:
+            t0 = time.perf_counter()
+            rec = dryrun.run_cell(arch, shape, multi_pod, out)
+            wall = time.perf_counter() - t0
+            if not rec["ok"]:
+                fail(f"dryrun {arch} {shape}: {rec.get('error')}\n"
+                     f"{rec.get('traceback', '')}")
+            if rec.get("skipped"):
+                emit("dryrun", step="cell", arch=arch, shape=shape,
+                     mesh_tag=rec["mesh_tag"], skipped=rec["skip_reason"],
+                     wall_s=wall)
+                continue
+            walker = {k: v for k, v in rec["walker"].items()
+                      if k != "top_ops"}
+            pred = predict_resources(from_dryrun_artifact(rec), H100_SXM)
+            emit("dryrun", step="cell", arch=arch, shape=shape,
+                 mesh_tag=rec["mesh_tag"], n_devices=rec["n_devices"],
+                 memory=rec["memory"], walker=walker,
+                 analysis_s=rec["walker"]["analysis_s"],
+                 top_ops=rec["walker"]["top_ops"][:4],
+                 useful_flops_ratio=rec["useful_flops_ratio"],
+                 predict_h100=pred.terms.to_dict(), wall_s=wall)
+            if rec["n_devices"] != (512 if multi_pod else 256):
+                fail(f"dryrun {arch} {shape}: {rec['n_devices']} devices")
+            if shape.startswith("decode") and \
+                    rec["memory"]["per_device_total"] >= DRYRUN_DEVICE_BYTES:
+                fail(f"dryrun {arch} {shape}: "
+                     f"{rec['memory']['per_device_total']} bytes a device")
+    cfg = get_config("qwen2-7b")
+    dryrun_card_check(
+        torch, "qwen2-7b prefill 4x2048", cfg,
+        ShapeConfig("prefill", SERVE_S, SERVE_B, "prefill"), SERVE_RUN,
+        lambda d: (build_model(cfg, SERVE_RUN).init(
+            torch.Generator(d).manual_seed(0), d),
+            {"tokens": torch.randint(
+                0, cfg.vocab_size, (SERVE_B, SERVE_S), device=d,
+                generator=torch.Generator(d).manual_seed(1),
+                dtype=torch.int32)}), dev)
+    tcfg = dataclasses.replace(cfg, num_layers=TRAIN_LAYERS)
+
+    def train_args(d):
+        toks = torch.randint(0, tcfg.vocab_size, (1, TRAIN_SEQ + 1),
+                             generator=torch.Generator(d).manual_seed(1),
+                             device=d, dtype=torch.int32)
+        return (init_train_state(build_model(tcfg, TRAIN_RUN),
+                                 torch.Generator(d).manual_seed(0),
+                                 device=d),
+                {"tokens": toks[:, :-1].contiguous(),
+                 "targets": toks[:, 1:].contiguous()})
+    dryrun_card_check(
+        torch, f"qwen2-7b train {TRAIN_LAYERS} layers 1x{TRAIN_SEQ}", tcfg,
+        ShapeConfig("train", TRAIN_SEQ, 1, "train"), TRAIN_RUN, train_args,
+        dev)
+    close_fake_world()
+    phase_s = time.perf_counter() - t_phase
+    emit("dryrun", step="phase", seconds=phase_s, limit_s=DRYRUN_PHASE_S)
+    if phase_s > DRYRUN_PHASE_S:
+        fail(f"dryrun: the phase took {phase_s:.1f} s")
+
+
 def phase_examples(torch) -> None:
     """Each ``examples/torch_*.py`` on the card (its default device) as a
     subprocess, in a scratch directory for the files it writes: exit 0,
@@ -3384,6 +3555,7 @@ def main() -> None:
     phase_service(torch, calib, fleet_profiles, fleet_refs)
     host, served = phase_serve(torch, np, rows)
     phase_static(torch, np, calib, served)
+    phase_dryrun(torch)
     phase_train(torch, np, calib)
     phase_families(torch, np, rows, calib, host)
     phase_examples(torch)

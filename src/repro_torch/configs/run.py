@@ -20,13 +20,17 @@ and the JAX package's defaults.
 which saves the outputs of matrix products with no batch dimension and
 recomputes the rest; ``full``, which saves only the layer's input.
 
-The JAX package's fields for distribution (``zero1``, ``sharding_mode``,
-``pipeline_stages``, ``max_cache_len``) come with the sharding slice
-(ROADMAP.md queue 1, item 7h).  ``skip_attn_blocks`` is not kept: the
-JAX package's ``attend_blocked`` discards it.  ``moe_dense_smoke`` and
-``grad_compression`` are kept and, as in the JAX package, read by
-nothing: ``make_job(compress=)`` and ``train(compress=)`` are the only
-switch for compression.
+Distribution: ``zero1`` shards the AdamW moments over the data axes
+(``train.step.train_state_specs``); ``sharding_mode`` picks the train
+cells' rule table, ``megatron`` (TP + SP + FSDP, ``TRAIN_RULES``) or
+``fsdp`` (ZeRO-3 only, ``FSDP_RULES``; ``launch.specs.rules_table_for``).
+
+``skip_attn_blocks`` is not kept: the JAX package's ``attend_blocked``
+discards it.  ``moe_dense_smoke``, ``grad_compression``,
+``pipeline_stages`` and ``max_cache_len`` are kept and, as in the JAX
+package, read by nothing: ``make_job(compress=)`` and ``train(compress=)``
+are the only switch for compression, and a serving cache is sized by its
+caller.
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 ATTN_IMPLS = ("auto", "full", "blocked", "cuda")
 REMATS = ("none", "dots", "full")
 GRAD_COMPRESSIONS = ("none", "int8_ef")
+SHARDING_MODES = ("megatron", "fsdp")
 
 
 @dataclass(frozen=True)
@@ -55,11 +60,16 @@ class RunConfig:
     # memory / remat
     remat: str = "full"                  # none | dots | full
     loss_chunk: int = 512                # 0 = unchunked [B,S,V] logits
-    # optimizer
+    # optimizer / distribution
+    zero1: bool = True                   # shard optimizer state over 'data'
+    sharding_mode: str = "megatron"      # megatron (TP+SP+FSDP) | fsdp (ZeRO-3 only)
     grad_compression: str = "none"       # none | int8_ef
     microbatches: int = 1
+    pipeline_stages: int = 1             # >1 routes pod axis to pipeline; unread
     # moe
     moe_dense_smoke: bool = False        # tiny-model testing aid; unread
+    # serving
+    max_cache_len: int = 0               # 0 = derived from shape; unread
 
     def __post_init__(self):
         if self.attn_impl not in ATTN_IMPLS:
@@ -70,6 +80,9 @@ class RunConfig:
         if self.remat not in REMATS:
             raise ValueError(f"remat must be one of {REMATS}, got "
                              f"{self.remat!r}")
+        if self.sharding_mode not in SHARDING_MODES:
+            raise ValueError(f"sharding_mode must be one of "
+                             f"{SHARDING_MODES}, got {self.sharding_mode!r}")
         if self.grad_compression not in GRAD_COMPRESSIONS:
             raise ValueError(f"grad_compression must be one of "
                              f"{GRAD_COMPRESSIONS}, got "
@@ -90,3 +103,7 @@ class RunConfig:
 
 TRAIN_RUN = RunConfig()
 SERVE_RUN = RunConfig(param_dtype="bfloat16", remat="none")
+
+
+def for_shape(shape_kind: str) -> RunConfig:
+    return TRAIN_RUN if shape_kind == "train" else SERVE_RUN

@@ -19,8 +19,9 @@ classifies it as the walker classifies an HLO instruction:
   * hbm_bytes    — operand and result bytes of every op that is not a view.
                    Eager mode fuses nothing, so this is an upper bound, as
                    the walker's count of unfused boundaries is
-  * collectives  — the functional collectives (``_c10d_functional``), by the
-                   walker's ring model (``_collective_wire_bytes``)
+  * collectives  — the functional collectives (``_c10d_functional``) and
+                   DTensor's all-to-all, by the walker's ring model
+                   (``_collective_wire_bytes``)
   * the flash kernel — ``synapse::flash_attention`` (the custom op of
                    ``repro_torch.kernels.flash_attention``) is charged the
                    matmul flops of the pairs its mask leaves
@@ -37,9 +38,18 @@ nothing when no counter is active.
 
 Runs on any device: on meta tensors nothing launches and nothing is
 allocated, and the counts equal those of a run on real tensors.
+
+On DTensors the counter counts the local program, one rank's, as the
+walker counts a partitioned module: a call on DTensors is left to the
+DTensor (the mode returns ``NotImplemented``), whose local ops on its
+shards, and the functional collectives of its redistributions, then reach
+the counter.  The calls of DTensor's sharding propagation, which runs an
+op once on global-shape ``FakeTensor``s, pass through uncounted and hold
+no live bytes.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import threading
 import weakref
@@ -106,14 +116,37 @@ _NO_BYTES = {"empty", "empty_like", "empty_strided", "new_empty",
              "new_empty_strided", "detach", "lift_fresh",
              "_local_scalar_dense", "wait_tensor", "_wrap_tensor_autograd"}
 
-#: functional collectives -> the walker's collective kinds
-_COLLECTIVES = {"all_reduce": "all-reduce",
-                "all_gather_into_tensor": "all-gather",
-                "reduce_scatter_tensor": "reduce-scatter",
-                "all_to_all_single": "all-to-all"}
+#: functional collectives, and DTensor's all-to-all between two sharded
+#: dims, -> the walker's collective kinds
+_COLLECTIVES = {("_c10d_functional", "all_reduce"): "all-reduce",
+                ("_c10d_functional", "all_gather_into_tensor"): "all-gather",
+                ("_c10d_functional", "reduce_scatter_tensor"):
+                    "reduce-scatter",
+                ("_c10d_functional", "all_to_all_single"): "all-to-all",
+                ("_dtensor", "shard_dim_alltoall"): "all-to-all"}
 
 
 _COMPOSITE = torch._C.DispatchKey.CompositeImplicitAutograd
+
+#: tensor subclass -> "dtensor", "fake" or None, read once a class
+_SUBCLASS_KIND: Dict[type, Optional[str]] = {torch.Tensor: None}
+
+
+def _subclass_kind(types) -> Optional[str]:
+    """"dtensor" if tensor types hold a DTensor, "fake" if they hold a
+    FakeTensor, else None."""
+    kind = None
+    for t in types:
+        k = _SUBCLASS_KIND.get(t, "")
+        if k == "":
+            from torch._subclasses.fake_tensor import FakeTensor
+            from torch.distributed.tensor import DTensor
+            k = _SUBCLASS_KIND[t] = "dtensor" if issubclass(t, DTensor) \
+                else "fake" if issubclass(t, FakeTensor) else None
+        if k == "dtensor":
+            return k
+        kind = kind or k
+    return kind
 
 
 def _tensors(x, out: list) -> list:
@@ -270,6 +303,8 @@ class OpCounter(TorchDispatchMode):
         self.peak_live_bytes = 0.0
         #: aten ops counted as data movement only, for a reader to check
         self.unclassified: Dict[str, int] = defaultdict(int)
+        #: how many times an op counts (``identical_trips``)
+        self._weight = 1.0
 
     # -- the clock ------------------------------------------------------------
 
@@ -315,6 +350,11 @@ class OpCounter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        sub = _subclass_kind(types)
+        if sub == "dtensor":            # its shards' ops come back here
+            return NotImplemented
+        if sub == "fake":               # sharding propagation: not run
+            return func(*args, **kwargs)
         op = self._ops.get(func)
         if op is None:
             op = self._ops[func] = _OpInfo(func)
@@ -333,10 +373,12 @@ class OpCounter(TorchDispatchMode):
 
     def _count(self, op: "_OpInfo", args, kwargs, out) -> None:
         ns, base = op.namespace, op.base
+        outs = _tensors(out, [])
+        if _subclass_kind(type(t) for t in outs) == "fake":
+            return                      # a factory of sharding propagation
         ins = _tensors(args, [])
         if kwargs:
             _tensors(tuple(kwargs.values()), ins)
-        outs = _tensors(out, [])
         self._track(ins, outs)
         if base in _NO_BYTES:
             return
@@ -351,8 +393,8 @@ class OpCounter(TorchDispatchMode):
                 q.shape[0], q.shape[1], k.shape[1], q.shape[2],
                 causal=args[3], window=args[4])
             dot_b = in_b + out_b
-        elif ns == "_c10d_functional" and base in _COLLECTIVES:
-            kind = _COLLECTIVES[base]
+        elif (ns, base) in _COLLECTIVES:
+            kind = _COLLECTIVES[ns, base]
             size, stride = _group_of(args[-1])
             coll = CollectiveOp(kind, _collective_wire_bytes(kind, out_b,
                                                              size),
@@ -392,17 +434,19 @@ class OpCounter(TorchDispatchMode):
                 flops += out_n
         else:
             self.unclassified[op.name] += 1
+        w = self._weight
         with self._lock:
             c = self._cur
-            c.flops += flops
-            c.transcendentals += trans
-            c.hbm_bytes += in_b + out_b
-            c.dot_bytes += dot_b
-            c.dot_flops += dot_f
+            c.flops += w * flops
+            c.transcendentals += w * trans
+            c.hbm_bytes += w * (in_b + out_b)
+            c.dot_bytes += w * dot_b
+            c.dot_flops += w * dot_f
             if coll is not None:
+                coll.count = w
                 c.collectives.append(coll)
             if flops:
-                c.op_flops[op.key] = c.op_flops.get(op.key, 0.0) + flops
+                c.op_flops[op.key] = c.op_flops.get(op.key, 0.0) + w * flops
 
     # -- live bytes -----------------------------------------------------------
 
@@ -475,6 +519,30 @@ def close_trip(x: torch.Tensor, loop: str) -> torch.Tensor:
     """Mark the end of the trip ``open_trip`` started."""
     counter = active_counter()
     return x if counter is None else _Trip.apply(x, counter, loop, False)
+
+
+@contextlib.contextmanager
+def identical_trips(n: int, *tensors: torch.Tensor):
+    """How many of a loop's ``n`` trips to run, where every trip runs the
+    same ops on the same shapes: ``with identical_trips(n, x) as k: for i
+    in range(k): ...``.  ``k`` is ``n``, but on meta tensors under a
+    counter, where no value is computed and no trip can differ from
+    another, it is 2, and each of the two trips' ops counts ``n / 2``
+    times, as the walker multiplies a ``while`` body by its trip count.
+    Two trips, not one, so that the live bytes see a trip's temporaries
+    overlap the next's, as they do from every trip to the next."""
+    counter = active_counter()
+    if counter is None or n <= 2 or not all(t.is_meta for t in tensors):
+        yield n
+        return
+    with counter._lock:
+        outer = counter._weight
+        counter._weight = outer * n / 2
+    try:
+        yield 2
+    finally:
+        with counter._lock:
+            counter._weight = outer
 
 
 def count_ops(fn: Callable, *args, **kwargs) -> Tuple[OpCounter, Any]:

@@ -17,8 +17,6 @@ inputs upcast to f32, the counterpart of ``preferred_element_type=f32``
 (a bf16 product of bf16 inputs is exact in f32, so the upcast gives the
 same logits).  Products the JAX package leaves in the input dtype
 (probabilities times values) stay in it here too.
-The JAX package's ``shard(...)`` constraints are dropped: without a mesh
-they are no-ops.
 """
 from __future__ import annotations
 
@@ -28,7 +26,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.op_analysis import identical_trips
 from repro_torch.models.params import PDef
+from repro_torch.parallel.sharding import (is_dtensor, local_like,
+                                           local_shard, match_placements,
+                                           merge_ready, seq_product, shard,
+                                           shard_local)
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -98,8 +101,8 @@ def _softcap(logits, cap: Optional[float]):
 
 def _bias(ok):
     """Additive f32 mask: 0 where ``ok``, ``NEG_INF`` elsewhere."""
-    return torch.zeros(ok.shape, dtype=torch.float32,
-                       device=ok.device).masked_fill_(~ok, NEG_INF)
+    return torch.zeros_like(ok, dtype=torch.float32).masked_fill_(~ok,
+                                                                 NEG_INF)
 
 
 def _mask_bias(q_pos, k_pos, *, causal: bool, window: Optional[int],
@@ -208,7 +211,10 @@ class BlockedFlash(torch.autograd.Function):
     (q, k, v, out, L = m + log l), O(S·hd), never the per-block f32
     accumulators (autograd through the loop would keep ``acc`` at every
     inner step: O(nk·S·hd) f32 a layer).  Backward: recomputes p per (kv,
-    q) block pair; dk/dv per kv block, dq accumulated in f32.
+    q) block pair; dk/dv per kv block, dq accumulated in f32.  Every block
+    pair runs the same ops on the same shapes: on meta tensors under the
+    operator counter, two trips of each loop run and count for all
+    (``op_analysis.identical_trips``).
     """
 
     @staticmethod
@@ -220,28 +226,31 @@ class BlockedFlash(torch.autograd.Function):
         kp = torch.arange(Sk, device=q.device)
         out = torch.empty_like(q, dtype=v.dtype)
         L = torch.empty((B, Hk, G, Sq), dtype=torch.float32, device=q.device)
-        for q0 in range(0, Sq, block_q):
-            qs = slice(q0, q0 + block_q)
-            qb = q[:, qs]
-            m = torch.full((B, Hk, G, block_q), NEG_INF, dtype=torch.float32,
-                           device=q.device)
-            l = torch.zeros_like(m)
-            acc = torch.zeros((B, Hk, G, block_q, hd), dtype=torch.float32,
-                              device=q.device)
-            for k0 in range(0, Sk, block_kv):
-                ks = slice(k0, k0 + block_kv)
-                s, _ = _capped(_scores(qb, k[:, ks], scale), softcap)
-                s = s + _block_bias(qp[qs], kp[ks], win_arr, causal)
-                m_new = torch.maximum(m, s.amax(dim=-1))
-                alpha = torch.exp(m - m_new)
-                p = torch.exp(s - m_new[..., None])
-                l = l * alpha + p.sum(dim=-1)
-                acc = acc * alpha[..., None] + torch.einsum(
-                    "bhgqk,bkhd->bhgqd", p.to(v.dtype), v[:, ks]).float()
-                m = m_new
-            lc = torch.clamp(l, min=1e-30)
-            out[:, qs] = (acc / lc[..., None]).permute(0, 3, 1, 2, 4)
-            L[..., qs] = m + torch.log(lc)
+        with identical_trips(Sq // block_q, q) as nq:
+            for q0 in range(0, nq * block_q, block_q):
+                qs = slice(q0, q0 + block_q)
+                qb = q[:, qs]
+                m = torch.full((B, Hk, G, block_q), NEG_INF,
+                               dtype=torch.float32, device=q.device)
+                l = torch.zeros_like(m)
+                acc = torch.zeros((B, Hk, G, block_q, hd),
+                                  dtype=torch.float32, device=q.device)
+                with identical_trips(Sk // block_kv, q) as nk:
+                    for k0 in range(0, nk * block_kv, block_kv):
+                        ks = slice(k0, k0 + block_kv)
+                        s, _ = _capped(_scores(qb, k[:, ks], scale), softcap)
+                        s = s + _block_bias(qp[qs], kp[ks], win_arr, causal)
+                        m_new = torch.maximum(m, s.amax(dim=-1))
+                        alpha = torch.exp(m - m_new)
+                        p = torch.exp(s - m_new[..., None])
+                        l = l * alpha + p.sum(dim=-1)
+                        acc = acc * alpha[..., None] + torch.einsum(
+                            "bhgqk,bkhd->bhgqd", p.to(v.dtype),
+                            v[:, ks]).float()
+                        m = m_new
+                lc = torch.clamp(l, min=1e-30)
+                out[:, qs] = (acc / lc[..., None]).permute(0, 3, 1, 2, 4)
+                L[..., qs] = m + torch.log(lc)
         ctx.save_for_backward(q, k, v, out, L, win_arr)
         ctx.args = (causal, softcap, block_q, block_kv)
         return out
@@ -259,24 +268,28 @@ class BlockedFlash(torch.autograd.Function):
         dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
         dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
         dv = torch.empty_like(dk)
-        for k0 in range(0, Sk, block_kv):
-            ks = slice(k0, k0 + block_kv)
-            kb, vb = k[:, ks], v[:, ks]
-            dkj = torch.zeros(kb.shape, dtype=torch.float32, device=q.device)
-            dvj = torch.zeros_like(dkj)
-            dqj = torch.empty_like(dq)
-            for q0 in range(0, Sq, block_q):
-                qs = slice(q0, q0 + block_q)
-                dqb, dkb, dvb = _grads_of_block(
-                    q[:, qs], kb, vb, do[:, qs], L[..., qs], delta[..., qs],
-                    _block_bias(qp[qs], kp[ks], win_arr, causal), scale,
-                    softcap)
-                dvj = dvj + dvb
-                dkj = dkj + dkb
-                dqj[:, qs] = dqb
-            dq = dq + dqj                # the JAX package's order of sums
-            dk[:, ks] = dkj
-            dv[:, ks] = dvj
+        with identical_trips(Sk // block_kv, q) as nk:
+            for k0 in range(0, nk * block_kv, block_kv):
+                ks = slice(k0, k0 + block_kv)
+                kb, vb = k[:, ks], v[:, ks]
+                dkj = torch.zeros(kb.shape, dtype=torch.float32,
+                                  device=q.device)
+                dvj = torch.zeros_like(dkj)
+                dqj = torch.empty_like(dq)
+                with identical_trips(Sq // block_q, q) as nq:
+                    for q0 in range(0, nq * block_q, block_q):
+                        qs = slice(q0, q0 + block_q)
+                        dqb, dkb, dvb = _grads_of_block(
+                            q[:, qs], kb, vb, do[:, qs], L[..., qs],
+                            delta[..., qs],
+                            _block_bias(qp[qs], kp[ks], win_arr, causal),
+                            scale, softcap)
+                        dvj = dvj + dvb
+                        dkj = dkj + dkb
+                        dqj[:, qs] = dqb
+                dq = dq + dqj            # the JAX package's order of sums
+                dk[:, ks] = dkj
+                dv[:, ks] = dvj
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
                 None, None, None, None, None)
 
@@ -288,7 +301,9 @@ class BandedAttention(torch.autograd.Function):
     Each query block of ``block_q`` rows attends only its ``band``-wide kv
     slice (band >= window + block_q - 1, clamped into range): O(S·band)
     work and memory instead of O(S²).  Neighbouring q blocks' slices
-    overlap, so the backward adds each block's dk/dv into its slice.
+    overlap, so the backward adds each block's dk/dv into its slice.  On
+    meta tensors under the operator counter, two q blocks run and count
+    for all (``op_analysis.identical_trips``).
     """
 
     @staticmethod
@@ -298,19 +313,21 @@ class BandedAttention(torch.autograd.Function):
         scale = hd ** -0.5
         out = torch.empty_like(q, dtype=v.dtype)
         L = torch.empty((B, Hk, G, Sq), dtype=torch.float32, device=q.device)
-        for i, q0 in enumerate(range(0, Sq, block_q)):
-            qs = slice(q0, q0 + block_q)
-            kst = _band_start(i, block_q, band, Sk)
-            ks = slice(kst, kst + band)
-            s, _ = _capped(_scores(q[:, qs], k[:, ks], scale), softcap)
-            s = s + _band_bias(q0, kst, block_q, band, window, q.device)
-            m = s.amax(dim=-1)
-            p = torch.exp(s - m[..., None])
-            l = p.sum(dim=-1)
-            lc = torch.clamp(l, min=1e-30)
-            o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v[:, ks])
-            out[:, qs] = o / lc.permute(0, 3, 1, 2)[..., None]
-            L[..., qs] = m + torch.log(lc)
+        with identical_trips(Sq // block_q, q) as nq:
+            for i, q0 in enumerate(range(0, nq * block_q, block_q)):
+                qs = slice(q0, q0 + block_q)
+                kst = _band_start(i, block_q, band, Sk)
+                ks = slice(kst, kst + band)
+                s, _ = _capped(_scores(q[:, qs], k[:, ks], scale), softcap)
+                s = s + _band_bias(q0, kst, block_q, band, window, q.device)
+                m = s.amax(dim=-1)
+                p = torch.exp(s - m[..., None])
+                l = p.sum(dim=-1)
+                lc = torch.clamp(l, min=1e-30)
+                o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype),
+                                 v[:, ks])
+                out[:, qs] = o / lc.permute(0, 3, 1, 2)[..., None]
+                L[..., qs] = m + torch.log(lc)
         ctx.save_for_backward(q, k, v, out, L)
         ctx.args = (window, softcap, block_q, band)
         return out
@@ -326,18 +343,19 @@ class BandedAttention(torch.autograd.Function):
         dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
         dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
         dv = torch.zeros_like(dk)
-        for i, q0 in enumerate(range(0, Sq, block_q)):
-            qs = slice(q0, q0 + block_q)
-            kst = _band_start(i, block_q, band, Sk)
-            ks = slice(kst, kst + band)
-            dqb, dkb, dvb = _grads_of_block(
-                q[:, qs], k[:, ks], v[:, ks], do[:, qs], L[..., qs],
-                delta[..., qs],
-                _band_bias(q0, kst, block_q, band, window, q.device), scale,
-                softcap)
-            dq[:, qs] = dqb
-            dk[:, ks] += dkb             # slices overlap: add, never assign
-            dv[:, ks] += dvb
+        with identical_trips(Sq // block_q, q) as nq:
+            for i, q0 in enumerate(range(0, nq * block_q, block_q)):
+                qs = slice(q0, q0 + block_q)
+                kst = _band_start(i, block_q, band, Sk)
+                ks = slice(kst, kst + band)
+                dqb, dkb, dvb = _grads_of_block(
+                    q[:, qs], k[:, ks], v[:, ks], do[:, qs], L[..., qs],
+                    delta[..., qs],
+                    _band_bias(q0, kst, block_q, band, window, q.device),
+                    scale, softcap)
+                dq[:, qs] = dqb
+                dk[:, ks] += dkb         # slices overlap: add, never assign
+                dv[:, ks] += dvb
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
                 None, None, None, None)
 
@@ -358,7 +376,16 @@ def attend_blocked(q, k, v, *, causal, window, softcap, block_q: int = 512,
     O(S·hd) saved).  q:[B,Sq,Hk,G,hd]; k,v:[B,Sk,Hk,hd]; positions are
     token order.  ``kv_valid_len`` falls back to dense attention; a static
     causal window over a square score matrix takes the banded path when the
-    band is shorter than the keys."""
+    band is shorter than the keys.  On DTensors the blocks run on each
+    device's shards of batch and KV heads (``shard_local``): the blocks
+    need no collective, and DTensor's dispatch of each block's ops would
+    cost more than the ops."""
+    if is_dtensor(q) and kv_valid_len is None:
+        return shard_local(
+            lambda q_, k_, v_: attend_blocked(
+                q_, k_, v_, causal=causal, window=window, softcap=softcap,
+                block_q=block_q, block_kv=block_kv, local_flag=local_flag),
+            q, k, v, dims=(0, 2))
     B, Sq, Hk, G, hd = q.shape
     Sk = k.shape[1]
     block_q = min(block_q, Sq)
@@ -398,7 +425,12 @@ def attend_decode(q, k_cache, v_cache, *, cur_pos, window, softcap,
             win_ok = win_ok | ~torch.as_tensor(local_flag, device=q.device)
         ok = ok & win_ok
     logits = logits + _bias(ok)[:, None, None, None, :]
-    probs = torch.softmax(logits, dim=-1).to(v_cache.dtype)
+    # softmax over the keys spelled out (max, exp, sum): on a
+    # length-sharded DTensor cache the logits reduce their [.., 1]
+    # statistics across the shards, as GSPMD partitions the JAX package's
+    # softmax, where DTensor's ``softmax`` would gather them
+    e = (logits - logits.amax(dim=-1, keepdim=True)).exp()
+    probs = (e / e.sum(dim=-1, keepdim=True)).to(v_cache.dtype)
     return torch.einsum("bhgqk,bkhd->bqhgd", probs, v_cache)
 
 
@@ -431,7 +463,8 @@ class AttnRun(NamedTuple):
 def _project(x, w):
     """x [B,S,D] @ w [D,H,hd] -> [B,S,H,hd]."""
     B, S, _ = x.shape
-    return (x @ w.to(x.dtype).flatten(1)).view(B, S, *w.shape[1:])
+    w = merge_ready(w.to(x.dtype), 1, w.dim())
+    return seq_product(x, w.flatten(1)).view(B, S, *w.shape[1:])
 
 
 def attention(p, x, *, cfg: ModelConfig, positions, is_local=False,
@@ -466,7 +499,11 @@ def attention(p, x, *, cfg: ModelConfig, positions, is_local=False,
         rope_pos = positions[None].expand((3,) + tuple(positions.shape))
     q = apply_rope(q, rope_pos, a.rope_theta, a.mrope_sections)
     k = apply_rope(k, rope_pos, a.rope_theta, a.mrope_sections)
-    qg = q.reshape(B, S, hk, G, hd)
+
+    q = shard(q, "batch", "seq", "act_heads", "head_dim")
+    k = shard(k, "batch", "seq", "act_kv_heads", "head_dim")
+    v = shard(v, "batch", "seq", "act_kv_heads", "head_dim")
+    qg, ka, va = _grouped(q, k, v, hk)
 
     if decode:
         if cache is None or S != 1:
@@ -485,7 +522,7 @@ def attention(p, x, *, cfg: ModelConfig, positions, is_local=False,
         # Masks follow token order (RoPE positions may repeat, e.g. M-RoPE).
         q_pos = torch.arange(S, device=x.device)
         if impl == "full":
-            out = attend_full(qg, k, v, q_pos=q_pos, k_pos=q_pos,
+            out = attend_full(qg, ka, va, q_pos=q_pos, k_pos=q_pos,
                               causal=causal, window=window,
                               local_flag=local_flag,
                               softcap=a.logit_softcap)
@@ -502,7 +539,7 @@ def attention(p, x, *, cfg: ModelConfig, positions, is_local=False,
                 softcap=a.logit_softcap,
                 block_q=run.block_q, block_kv=run.block_kv)
         elif impl == "blocked":
-            out = attend_blocked(qg, k, v, causal=causal, window=window,
+            out = attend_blocked(qg, ka, va, causal=causal, window=window,
                                  local_flag=local_flag,
                                  softcap=a.logit_softcap,
                                  block_q=run.block_q, block_kv=run.block_kv)
@@ -511,14 +548,40 @@ def attention(p, x, *, cfg: ModelConfig, positions, is_local=False,
         new_cache = None
         if cache is not None:  # prefill fills the cache
             T = cache["k"].shape[1]
-            new_cache = {"k": _pad_to(k, T).to(cache["k"].dtype),
-                         "v": _pad_to(v, T).to(cache["v"].dtype),
+            kpad = _pad_to(k, T).to(cache["k"].dtype)
+            vpad = _pad_to(v, T).to(cache["v"].dtype)
+            new_cache = {"k": shard(kpad, "batch", "cache_seq", None, "head_dim"),
+                         "v": shard(vpad, "batch", "cache_seq", None, "head_dim"),
                          "pos": torch.full((B,), S, dtype=torch.int32,
                                            device=x.device)}
 
     out = out.reshape(B, S, hq * hd)
-    out = out @ p["wo"].to(x.dtype).reshape(hq * hd, D)
+    out = seq_product(out, merge_ready(p["wo"].to(x.dtype), 0, 2).reshape(
+        hq * hd, D))
     return out, new_cache
+
+
+def _grouped(q, k, v, hk: int):
+    """(q [B,S,Hk,G,hd], k, v [B,S,Hk,hd]) for grouped-query attention.
+    On DTensors whose query heads are sharded over more devices than
+    there are KV heads (Qwen2-72B: 64 query and 8 KV heads on a model
+    axis of 16), which no split of the query heads into (KV head, group)
+    can keep, each query head gets its own copy of its KV head (G = 1):
+    a local copy of the replicated k and v, laid out as the query heads."""
+    B, S, hq, hd = q.shape
+    G = hq // hk
+    n = 1
+    if is_dtensor(q):
+        for i, p in enumerate(q.placements):
+            if p.is_shard(2):
+                n *= q.device_mesh.size(i)
+    if hk % n == 0:
+        return q.reshape(B, S, hk, G, hd), k, v
+
+    def per_head(t):
+        t = t[:, :, :, None].expand(B, S, hk, G, hd).reshape(B, S, hq, hd)
+        return match_placements(t, q)
+    return q.reshape(B, S, hq, 1, hd), per_head(k), per_head(v)
 
 
 def _cache_write(cache_arr, new_kv, pos):
@@ -528,16 +591,20 @@ def _cache_write(cache_arr, new_kv, pos):
     Updating the cache in place saves a cache-sized copy a layer and a step
     (the JAX package gets the same from XLA's in-place scatter into the
     donated buffer).  As the JAX package's ``mode="drop"`` scatter does, a
-    write at ``pos >= T`` is skipped, not an index error."""
-    B, T = cache_arr.shape[:2]
-    upd = new_kv.to(cache_arr.dtype)[:, 0]                    # [B,H,hd]
-    keep = pos < T
+    write at ``pos >= T`` is skipped, not an index error.  Into a DTensor
+    cache each device writes the rows and positions its shard holds, with
+    no collective, as GSPMD partitions the JAX package's scatter into a
+    length-sharded cache: the new entries are laid out as the cache is but
+    along its length (replicated there), the positions as its rows."""
+    arr, offset = local_shard(cache_arr)
+    upd = local_like(new_kv, cache_arr, (0, 2, 3)).to(arr.dtype)[:, 0]
+    p = local_like(pos, cache_arr, (0,)) - offset[1]          # local slots
+    keep = (p >= 0) & (p < arr.shape[1])
     # no boolean indexing, which would wait for the device: a dropped row
     # writes its own current entry back
-    rows = torch.arange(B, device=cache_arr.device)
-    idx = torch.where(keep, pos, 0).long()
-    cache_arr[rows, idx] = torch.where(keep[:, None, None], upd,
-                                       cache_arr[rows, idx])
+    rows = torch.arange(arr.shape[0], device=arr.device)
+    idx = torch.where(keep, p, 0).long()
+    arr[rows, idx] = torch.where(keep[:, None, None], upd, arr[rows, idx])
     return cache_arr
 
 
@@ -563,5 +630,7 @@ def def_mlp(d: int, f: int) -> Dict[str, PDef]:
 
 
 def mlp(p, x):
-    h = F.silu(x @ p["wi_gate"].to(x.dtype)) * (x @ p["wi_up"].to(x.dtype))
-    return h @ p["wo"].to(x.dtype)
+    h = F.silu(seq_product(x, p["wi_gate"].to(x.dtype))) * seq_product(
+        x, p["wi_up"].to(x.dtype))
+    h = shard(h, "batch", "seq", "act_ff")
+    return seq_product(h, p["wo"].to(x.dtype))

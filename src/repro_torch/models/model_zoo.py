@@ -2,7 +2,7 @@
 
 ``build_model(cfg, run)`` returns a ``Model`` whose members close over the
 config, as in the JAX package: everything downstream (train step, serve
-engine, Synapse profiler) is family-agnostic.
+engine, dry-run, Synapse profiler) is family-agnostic.
 """
 from __future__ import annotations
 
@@ -17,7 +17,8 @@ from repro_torch.device import DeviceLike
 from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import hybrid as hybrid_lib
 from repro_torch.models import transformer as tr
-from repro_torch.models.params import count_params, init_params
+from repro_torch.models.params import (abstract_params, count_params,
+                                       init_params, spec_tree)
 
 
 @dataclass(frozen=True)
@@ -33,6 +34,14 @@ class Model:
         """Random parameters in ``run.param_dtype`` on ``device`` (``"cuda"``
         unless named), drawn from ``generator``, which lives there."""
         return init_params(self.pdefs, generator, self.run.pdtype, device)
+
+    def abstract(self, mesh=None, rules=None):
+        """The parameters with no data: meta tensors, or DTensors with
+        meta shards on ``mesh`` (``params.abstract_params``)."""
+        return abstract_params(self.pdefs, self.run.pdtype, mesh, rules)
+
+    def param_specs(self, rules):
+        return spec_tree(self.pdefs, rules)
 
     def num_params(self) -> int:
         return count_params(self.pdefs)

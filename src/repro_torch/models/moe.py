@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import def_mlp, mlp
 from repro_torch.models.params import PDef
-from repro_torch.parallel.sharding import shard
+from repro_torch.parallel.sharding import shard, shard_local
 
 
 def def_moe(cfg: ModelConfig) -> Dict[str, Any]:
@@ -86,15 +86,17 @@ def _route(router, x, cfg: ModelConfig):
     return logits, probs, gate_vals, expert_idx, pos, keep, oh
 
 
-def moe_block(p, x, *, cfg: ModelConfig
-              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """x: [B, S, D] -> (out [B, S, D], aux losses)."""
+def _dispatch(router, x, cfg: ModelConfig):
+    """Route ``x`` [B, S, D] and gather each expert's tokens: (gathered
+    [B, E, C, D], each (token, slot)'s place in the experts' outputs and
+    its gate [B, S, K], and the router's logits, probs, keep mask and
+    one-hot for the aux losses)."""
     m = cfg.moe
     B, S, D = x.shape
     E, K = m.num_experts, m.top_k
     C = _capacity(S, K, E, m.capacity_factor)
     logits, probs, gate_vals, expert_idx, pos, keep, oh = _route(
-        p["router"], x, cfg)
+        router, x, cfg)
 
     # --- dispatch: token index s into [B, E, C+1]; slot C takes the drops,
     # S marks an empty slot.  Kept tokens own distinct slots, so the only
@@ -111,6 +113,34 @@ def moe_block(p, x, *, cfg: ModelConfig
     gathered = torch.gather(
         xs, 1, table.reshape(B, E * C, 1).expand(B, E * C, D)
     ).reshape(B, E, C, D)
+    slot = expert_idx * C + torch.clamp(safe_pos, max=C - 1)  # [B,S,K]
+    return gathered, slot, gate_vals, (logits, probs, keep, oh)
+
+
+def _combine(y, slot, gate_vals):
+    """Each token's K expert outputs from ``y`` [B, E, C, D], weighted by
+    its gates: [B, S, D]."""
+    B, E, C, D = y.shape
+    S, K = slot.shape[1:]
+    flat = y.reshape(B, E * C, D)
+    tok_out = torch.gather(
+        flat, 1, slot.reshape(B, S * K, 1).expand(B, S * K, D)
+    ).reshape(B, S, K, D)
+    return (tok_out * gate_vals[..., None].to(y.dtype)).sum(dim=2)
+
+
+def moe_block(p, x, *, cfg: ModelConfig
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: [B, S, D] -> (out [B, S, D], aux losses).  On DTensors the
+    routing, dispatch and combine run on each device's rows
+    (``shard_local``: DTensor has no layout for their scatters and
+    gathers), the expert products on DTensors sharded by expert."""
+    m = cfg.moe
+    E, K = m.num_experts, m.top_k
+    gathered, slot, gate_vals, stats = shard_local(
+        lambda x_, r: _dispatch(r, x_, cfg), x, dims=(0,),
+        whole=(p["router"],))
+    logits, probs, keep, oh = stats
     gathered = shard(gathered, "batch", "act_experts", "expert_cap", None)
 
     # --- expert FFN (swiglu): batched matrix products over the experts -----
@@ -123,12 +153,7 @@ def moe_block(p, x, *, cfg: ModelConfig
     y = torch.einsum("becf,efd->becd", h, wo)                # [B,E,C,D]
 
     # --- combine: gather each token's K expert outputs ----------------------
-    flat = y.reshape(B, E * C, D)
-    slot = expert_idx * C + torch.clamp(safe_pos, max=C - 1)  # [B,S,K]
-    tok_out = torch.gather(
-        flat, 1, slot.reshape(B, S * K, 1).expand(B, S * K, D)
-    ).reshape(B, S, K, D)
-    out = (tok_out * gate_vals[..., None].to(x.dtype)).sum(dim=2)
+    out = shard_local(_combine, y, slot, gate_vals, dims=(0,))
 
     if m.shared_expert:
         out = out + mlp(p["shared"], x)

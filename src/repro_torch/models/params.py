@@ -2,11 +2,17 @@
 
 A model is described once as a nested dict of ``PDef`` leaves (shape, logical
 axes, initializer), as in the JAX package.  From that single source the port
-derives materialized parameters (``init_params``) and the parameter count;
-``from_numpy`` carries the JAX package's parameters across, and
-``train_state_from_numpy`` its train state.  The logical
-axes are kept for the sharding slice (``spec_tree`` and ``abstract_params``
-are not ported yet: ROADMAP.md queue 1, item 7h).
+derives:
+
+  * materialized parameters          (``init_params``)
+  * PartitionSpecs                   (``spec_tree``)
+  * tensors with no data for the dry-run (``abstract_params``: meta
+    tensors, or DTensors with meta shards on a mesh)
+
+and the parameter count; ``from_numpy`` carries the JAX package's
+parameters across, and ``train_state_from_numpy`` its train state.
+Logical axis names are resolved to mesh axes by
+``repro_torch.parallel.sharding`` rules.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve
+from repro_torch.parallel.sharding import abstract_tensor
 
 
 @dataclass(frozen=True)
@@ -88,6 +95,32 @@ def init_params(tree, generator: torch.Generator, dtype=torch.float32,
                          f"{generator.device}, the parameters go to {dev}")
     return _tree_map(
         tree, lambda path, pd: _materialize(generator, pd, dtype, dev))
+
+
+def spec_tree(tree, rules):
+    """PDef tree -> PartitionSpec tree via logical-axis rules.
+
+    Divisibility-checked with row-parallel TP fallback (see
+    Rules.pspec_checked): head counts that don't divide the model axis fall
+    back to sharding d_model.
+    """
+    return _tree_map(
+        tree,
+        lambda path, pd: rules.pspec_checked(pd.shape, pd.axes,
+                                             tp_fallback=True))
+
+
+def abstract_params(tree, dtype, mesh=None, rules=None):
+    """PDef tree -> tensors with no data (the dry-run's input): meta
+    tensors, or on ``mesh`` DTensors laid out by ``spec_tree``'s specs
+    whose local shards are meta tensors of the shard's shape."""
+    def mk(path, pd):
+        dt = pd.dtype or dtype
+        spec = None if mesh is None else rules.pspec_checked(
+            pd.shape, pd.axes, tp_fallback=True)
+        return abstract_tensor(pd.shape, dt, mesh, spec)
+
+    return _tree_map(tree, mk)
 
 
 def from_numpy(tree, dtype=None, device: DeviceLike = None):

@@ -34,6 +34,8 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (AttnRun, attention, def_attention,
                                        def_mlp, def_rmsnorm, mlp, rmsnorm)
 from repro_torch.models.params import PDef, map_tensors, stack_pdefs
+from repro_torch.parallel.sharding import (fsdp_gathered, seq_product, shard,
+                                           unsharded)
 
 
 # ---------------------------------------------------------------------------
@@ -100,8 +102,12 @@ def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
     dev = resolve(device)
     hk, hd = cfg.num_kv_heads, cfg.head_dim
     return {
-        "k": torch.zeros((batch, max_len, hk, hd), dtype=dtype, device=dev),
-        "v": torch.zeros((batch, max_len, hk, hd), dtype=dtype, device=dev),
+        "k": shard(torch.zeros((batch, max_len, hk, hd), dtype=dtype,
+                               device=dev),
+                   "batch", "cache_seq", None, "head_dim"),
+        "v": shard(torch.zeros((batch, max_len, hk, hd), dtype=dtype,
+                               device=dev),
+                   "batch", "cache_seq", None, "head_dim"),
         "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
     }
 
@@ -133,15 +139,21 @@ def _attn_run(run: RunConfig) -> AttnRun:
 
 def block_apply(pl, x, *, cfg: ModelConfig, run: RunConfig, positions,
                 local_flag, cache_layer=None, decode=False):
+    seq_ax = "seq_shard" if not decode else "seq"
     h = rmsnorm(pl["ln_attn"], x, cfg.norm_eps)
+    # pin the norm output to the seq-sharded layout, so the Megatron-SP
+    # all-gather happens on the compute-dtype h at the qkv product
+    h = shard(h, "batch", seq_ax, "embed")
     attn_out, new_cache = attention(
         pl["attn"], h, cfg=cfg, positions=positions, is_local=local_flag,
         run=_attn_run(run), cache=cache_layer, decode=decode)
     if cfg.sandwich_norms:
         attn_out = rmsnorm(pl["ln_attn_post"], attn_out, cfg.norm_eps)
     x = x + attn_out
+    x = shard(x, "batch", seq_ax, "embed")
 
     h = rmsnorm(pl["ln_mlp"], x, cfg.norm_eps)
+    h = shard(h, "batch", seq_ax, "embed")
     if cfg.moe is not None:
         mlp_out, aux = moe_lib.moe_block(pl["moe"], h, cfg=cfg)
     else:
@@ -149,6 +161,7 @@ def block_apply(pl, x, *, cfg: ModelConfig, run: RunConfig, positions,
     if cfg.sandwich_norms:
         mlp_out = rmsnorm(pl["ln_mlp_post"], mlp_out, cfg.norm_eps)
     x = x + mlp_out
+    x = shard(x, "batch", seq_ax, "embed")
     return x, new_cache, aux
 
 
@@ -180,8 +193,9 @@ def embed_tokens(params, batch, cfg: ModelConfig, run: RunConfig):
     else:
         # F.embedding, not indexing: its backward sums repeated tokens in a
         # fixed order (indexing's scatter-add does not on several threads)
-        x = F.embedding(batch["tokens"].long(), params["embed"]).to(
-            run.cdtype)
+        tokens = batch["tokens"]
+        x = F.embedding(tokens.long(),
+                        fsdp_gathered(params["embed"], tokens)).to(run.cdtype)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=run.cdtype,
                              device=x.device)
@@ -264,21 +278,28 @@ def forward_stack(params, batch, *, cfg: ModelConfig, run: RunConfig,
                                     device=x.device)
         else:
             positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    x = shard(x, "batch", "seq_shard" if not decode else "seq", "embed")
 
-    layers = params["layers"]
+    # one unbind a stacked leaf: its backward stacks the layers' gradients
+    # once, where indexing a layer at a time would add L stacked-size
+    # gradients (work quadratic in the depth).  A leaf sharded along its
+    # layers is gathered along them first
+    per_layer = map_tensors(params["layers"],
+                            lambda p: unsharded(p, (0,)).unbind(0))
     aux_acc: Dict[str, Any] = {}
     for looped, trip in _plan_trips(cfg):
         if looped:
             x = open_trip(x, "layers")
         for li, flag in trip:
-            pl = map_tensors(layers, lambda p: p[li])
+            pl = map_tensors(per_layer, lambda ps: ps[li])
             cl = None if cache is None else map_tensors(cache,
                                                         lambda c: c[li])
             # the flag is bound as a default: a remat recompute calls the
             # body after the loop has moved on
             x, nc, aux = _remat_wrap(
                 lambda c, p_, cl_, f=flag: block_fn(
-                    p_, c, positions=positions, local_flag=f,
+                    fsdp_gathered(p_, c), c, positions=positions,
+                    local_flag=f,
                     cache_layer=cl_, decode=decode), run)(x, pl, cl)
             if nc is not None:
                 _cache_set(cl, nc)
@@ -324,7 +345,8 @@ def forward_lm(params, batch, *, cfg: ModelConfig, run: RunConfig,
 def lm_logits(params, hidden, cfg: ModelConfig, run: RunConfig):
     """[.., D] -> [.., V] with optional final softcap (gemma2)."""
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = hidden @ w.to(hidden.dtype)
+    w = fsdp_gathered(w, hidden)
+    logits = seq_product(hidden, w.to(hidden.dtype))
     if cfg.attn.final_softcap is not None:
         c = cfg.attn.final_softcap
         logits = c * torch.tanh(logits.float() / c)

@@ -6,8 +6,15 @@ the JAX package's leaf names, so a checkpoint crosses between the two.
 ``adamw_update`` updates the parameters, ``mu`` and ``nu`` in place, leaf
 by leaf, with the JAX package's rounding at every step: on one card a
 functional update of a 2e9-parameter state would hold a second copy of
-parameters, moments and clipped gradients (32 GB).  ZeRO-1 (``zero1_specs``) comes with the
-sharding slice (ROADMAP.md queue 1, item 7h).
+parameters, moments and clipped gradients (32 GB).
+
+ZeRO-1: the optimizer state (mu, nu) can be sharded over the 'data' mesh
+axis in addition to the parameter's own TP sharding (``zero1_specs``).  On
+DTensors, ``adamw_update`` lays each gradient out as its moments are
+before anything else (a reduce-scatter of a partial sum), updates the
+moments locally, and the parameter's in-place update gathers the step to
+the parameter's layout: the classic reduce-scatter(grads) -> local update
+-> all-gather schedule that GSPMD makes of the JAX package's.
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ from typing import Any, Dict, Iterator
 import torch
 
 from repro_torch.models.params import map_tensors
+from repro_torch.parallel.sharding import P, match_placements, mesh_axes
 
 
 @dataclass(frozen=True)
@@ -80,7 +88,8 @@ def adamw_update(grads, opt_state, params, cfg: OptConfig):
     of ``clip_by_global_norm`` is formed one leaf at a time, so the update
     holds at most three leaf-sized temporaries."""
     step = opt_state["step"]
-    grads = map_tensors(grads, lambda g: g.float())
+    grads = map_tensors(grads, lambda g, m: match_placements(g.float(), m),
+                        opt_state["mu"])
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
                         max=1.0)
@@ -107,3 +116,41 @@ def adamw_update(grads, opt_state, params, cfg: OptConfig):
     new_state = {"mu": opt_state["mu"], "nu": opt_state["nu"],
                  "step": step + 1}
     return params, new_state, {"grad_norm": gnorm, "lr": lr}
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1 sharding of optimizer state
+# ---------------------------------------------------------------------------
+
+def zero1_specs(param_specs, abstract_params, mesh, rules):
+    """Add the 'opt_shard' ('data') axis to the first divisible unsharded dim.
+
+    ``param_specs``: PartitionSpec tree; ``abstract_params``: the matching
+    tree of tensors (their shapes).  Leaves where no dim divides keep the
+    param spec (ZeRO-1 falls back gracefully for small tensors).
+    """
+    data_axes = rules.resolve("opt_shard")
+    if data_axes is None or mesh is None:
+        return param_specs
+    if isinstance(data_axes, str):
+        data_axes = (data_axes,)
+    sizes = mesh_axes(mesh)
+    dsize = 1
+    for a in data_axes:
+        dsize *= sizes[a]
+
+    def one(spec, aval):
+        shape = aval.shape
+        parts = list(tuple(spec)) + [None] * (len(shape) - len(tuple(spec)))
+        flat = set()
+        for e in parts:
+            flat.update((e,) if isinstance(e, str) else (e or ()))
+        if flat & set(data_axes):
+            return spec              # FSDP already shards this leaf over data
+        for i, (s, ax) in enumerate(zip(shape, parts)):
+            if ax is None and s % dsize == 0 and s >= dsize:
+                parts[i] = data_axes if len(data_axes) > 1 else data_axes[0]
+                return P(*parts)
+        return spec
+
+    return map_tensors(param_specs, one, abstract_params)

@@ -13,16 +13,26 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.op_analysis import close_trip, open_trip
+from repro_torch.parallel.sharding import first_argmax
 
 
 def _ce_block(logits, targets):
-    """logits [.., V]; targets [..] int -> (sum loss, sum correct), f32."""
+    """logits [.., V]; targets [..] int -> (sum loss, sum correct), f32.
+
+    Spelled in maxima, sums and masks over V, with no ``logsumexp``,
+    ``gather`` or ``argmax``: on vocab-sharded DTensor logits each of
+    these reduces its [.., 1] statistics across the shards (a small
+    all-reduce), as GSPMD partitions the JAX package's, where DTensor's
+    own ``logsumexp`` and ``argmax`` would gather the logits."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    tgt = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    V = logits.shape[-1]
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    lse = (logits - m).exp().sum(dim=-1, keepdim=True).log() + m
+    vocab = torch.arange(V, dtype=torch.int32, device=logits.device)
+    hit = vocab == targets[..., None]
+    tgt = torch.where(hit, logits, 0.0).sum(dim=-1, keepdim=True)
     loss = (lse - tgt).sum()
-    # the first maximum on ties, as jnp.argmax takes it
-    correct = (logits.argmax(dim=-1) == targets).float().sum()
+    correct = (first_argmax(logits, m) == targets).float().sum()
     return loss, correct
 
 

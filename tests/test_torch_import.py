@@ -49,6 +49,7 @@ SLICE = [
     "repro_torch.kernels.segment", "repro_torch.kernels.segment.kernel",
     "repro_torch.kernels.segment.ops", "repro_torch.kernels.segment.ref",
     "repro_torch.launch", "repro_torch.launch.mesh",
+    "repro_torch.launch.specs", "repro_torch.launch.dryrun",
     "repro_torch.scenarios", "repro_torch.scenarios.base",
     "repro_torch.scenarios.serving", "repro_torch.scenarios.algebra",
     "repro_torch.scenarios.training", "repro_torch.scenarios.fanout",
@@ -104,6 +105,25 @@ def test_import_leaves_jax_and_repro_out():
     import json
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got == {"bad": [], "built": False}
+
+
+def test_dryrun_imports_without_touching_the_environment():
+    """The JAX package's dry-run sets ``XLA_FLAGS`` when imported; the
+    port's sets no variable (its fake process group is made per call)."""
+    child = ("import json, os; before = dict(os.environ); "
+             "import repro_torch.launch.dryrun; "
+             "import torch.distributed as dist; "
+             "print(json.dumps({'env': dict(os.environ) == before, "
+             "'xla': 'XLA_FLAGS' in os.environ, "
+             "'group': dist.is_initialized()}))")
+    env = dict(os.environ, PYTHONPATH=SRC)
+    env.pop("XLA_FLAGS", None)
+    out = subprocess.run([sys.executable, "-c", child], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    import json
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == {
+        "env": True, "xla": False, "group": False}
 
 
 def _port_files():

@@ -90,7 +90,8 @@ def test_run_config_names_the_ports_attention_impls():
     assert fields == {"param_dtype", "compute_dtype", "cache_dtype",
                       "attn_impl", "block_q", "block_kv", "blocked_threshold",
                       "remat", "loss_chunk", "grad_compression",
-                      "microbatches", "moe_dense_smoke"}
+                      "microbatches", "moe_dense_smoke", "zero1",
+                      "sharding_mode", "pipeline_stages", "max_cache_len"}
     assert fields <= {f.name for f in dataclasses.fields(JRun)}
     assert TRAIN_RUN.pdtype == torch.float32
     assert TRAIN_RUN.cdtype == TRAIN_RUN.kvdtype == torch.bfloat16
