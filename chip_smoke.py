@@ -147,7 +147,21 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
              seed 0 (Qwen2-7B's prefill of 4 x 2048 tokens at full depth,
              the train phase's 4-layer step of 1 x 4096 tokens): argument
              bytes exact, the card's counted flops within 1e-9, its peak of
-             allocated memory within 15% of ``per_device_total``
+             allocated memory within 1% of ``per_device_total``
+  ranks      shards on distinct ranks: two processes on the card, the
+             ranks of one gloo process group (NCCL takes a card a rank
+             and is refused here; gloo stages CUDA tensors through the
+             host).  Qwen2-7B's widths cut to 2 layers, its stacked
+             weights at the std of their true fan-in: one float32 train
+             step on a (1, 2) ("data", "model") mesh against the same step
+             on one rank run first (loss, each leaf's gradients, the
+             share of parameters outside the JAX package's atol / rtol);
+             a prefill and 4 decode steps on (1, 2), tokens identical to
+             one rank's; the collective phase's Qwen2-7B training_scan
+             replayed fused on a (2,) mesh of ranks (consumed equal to the
+             shared mesh's, each rank's segment launch with exact device
+             counts, the wire steps and bytes the quantized schedule's,
+             ``ttc_s`` host-staged); each step's ms and each rank's peak
   examples   every ``examples/torch_*.py`` on the card as a subprocess:
              exit 0, wall time
 
@@ -376,6 +390,34 @@ DRYRUN_DEVICE_BYTES = 80e9
 # prediction that leaves out one loss chunk's logits); the whole phase
 # within DRYRUN_PHASE_S
 DRYRUN_FLOPS_TOL, DRYRUN_MEMORY_TOL, DRYRUN_PHASE_S = 1e-9, 0.01, 150.0
+
+# shards on distinct ranks: two processes on the card, the ranks of one
+# gloo group (NCCL takes a card a rank).  Qwen2-7B's widths cut to 2
+# layers (1.56e9 parameters: 18.7 GB of float32 weights and moments on one
+# rank, half a rank on the (1, 2) mesh), its stacked weights at the std
+# of their true fan-in (ranks_fan_in), one float32 step on 1 x 1024
+# tokens under the reference's optimizer of tests/test_distributed.py (lr
+# 1e-2 from the first step, so AdamW's first update, lr g / (|g| + eps),
+# is whole); the loss within the reference's 1e-4, the parameters at its
+# atol 2e-4 / rtol 2e-3 for all but RANKS_OUTSIDE_SHARE of their elements
+# (that update turns a float32 gradient difference near g = 0 into up to
+# lr of a parameter); decode of 2 prompts of 64 tokens and 4 steps, tokens
+# identical; the phase within RANKS_PHASE_S
+RANKS_WORLD, RANKS_LAYERS, RANKS_SEQ = 2, 2, 1024
+RANKS_TRAIN_RUN = dict(param_dtype="float32", compute_dtype="float32",
+                       remat="none", loss_chunk=0)
+RANKS_SERVE_RUN = dict(param_dtype="float32", compute_dtype="float32",
+                       cache_dtype="float32", remat="none")
+RANKS_OPT = dict(lr=1e-2, warmup_steps=1, decay_steps=100,
+                 weight_decay=0.0)
+RANKS_LOSS_RTOL, RANKS_PARAM_ATOL, RANKS_PARAM_RTOL = 1e-4, 2e-4, 2e-3
+RANKS_OUTSIDE_SHARE = 1e-4
+# each leaf's gradient: its largest difference from one rank's over one
+# rank's largest magnitude (2.2e-6 at Qwen2-7B's heads and d_model on CPU
+# ranks).  Both checks take the weights of ranks_fan_in
+RANKS_GRAD_TOL = 1e-4
+RANKS_DECODE_B, RANKS_DECODE_PROMPT, RANKS_DECODE_STEPS = 2, 64, 4
+RANKS_TIMEOUT_S, RANKS_PHASE_S = 600.0, 240.0
 
 
 def emit(phase: str, **fields) -> None:
@@ -3495,6 +3537,404 @@ def phase_families(torch, np, rows, calib, host, dev=None):
     rows["flash_attention"]["families_launches"] = launches
 
 
+def _sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _peak(torch, dev, reset: bool = False) -> int:
+    """The card's peak of allocated bytes since the last reset (0 on the
+    CPU, where the phase is rehearsed)."""
+    if dev.type != "cuda":
+        return 0
+    if reset:
+        torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.max_memory_allocated(dev)
+
+
+def _free(torch, dev) -> None:
+    import gc
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _paths(tree, path=()):
+    """(path, leaf) of a nested dict, in sorted key order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _paths(tree[k], path + (k,))
+    else:
+        yield path, tree
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def ranks_fan_in(torch, params, cfg) -> None:
+    """Rescale, in place, the stacked weight matrices of ``params`` (drawn
+    by ``Model.init``) to std 1 / sqrt(d_model).  The JAX package draws a
+    stacked leaf at std 1 / sqrt(its leading dim), the layer count, which
+    at these widths saturates the attention: there float32's own
+    gradients differ from float64's by 10-43% of a leaf's largest on one
+    device (Qwen2-7B's heads and d_model, 2 layers, on the CPU), so no two
+    float32 orders of a step's sums can be held to each other."""
+    with torch.no_grad():
+        for _, w in _paths(params["layers"]):
+            if w.dim() >= 3:
+                w.mul_(math.sqrt(cfg.num_layers / cfg.d_model))
+
+
+def ranks_train_rank(rank, dev_name, cfg, seq):
+    """A rank of the ranks phase's train check (weights:
+    ``ranks_fan_in``).  Rank 0 first runs the
+    step on its own (one rank, no mesh), keeps the gradients and the new
+    parameters on the host and frees the card; then both ranks build the
+    same state from the same seed, place it on the (1, 2) mesh and run
+    the step there.  Returns, on rank 0, the two losses, and per leaf the
+    gradients' largest difference over their largest magnitude, the new
+    parameters' largest difference and their elements outside the
+    reference's tolerance; and every rank's peaks, state bytes and step
+    ms."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.run import RunConfig
+    from repro_torch.launch import world
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.params import map_tensors
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.parallel.sharding import TRAIN_RULES, make_rules
+    from repro_torch.train import step as step_mod
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(dev_name)
+    model = build_model(cfg, RunConfig(**RANKS_TRAIN_RUN))
+    opt = OptConfig(**RANKS_OPT)
+    toks = torch.randint(0, cfg.vocab_size, (1, seq + 1),
+                         generator=torch.Generator(dev).manual_seed(1),
+                         device=dev, dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "targets": toks[:, 1:].contiguous()}
+    grads = {}
+    update = step_mod.adamw_update
+
+    def capture(g, *a, **kw):             # the gradients AdamW is given
+        grads["g"] = g
+        return update(g, *a, **kw)
+    step_mod.adamw_update = capture
+
+    def state():
+        st = step_mod.init_train_state(
+            model, torch.Generator(dev).manual_seed(0), device=dev)
+        ranks_fan_in(torch, st["params"], cfg)
+        return st
+
+    def timed(fn):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(torch, dev)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    out = {}
+    if rank == 0:
+        _peak(torch, dev, reset=True)
+        (new, met), out["one_rank_ms"] = timed(
+            lambda: step_mod.make_train_step(model, opt)(state(), batch))
+        out["one_rank_loss"] = float(met["loss"])
+        ref = map_tensors(new["params"], lambda t: t.detach().cpu())
+        ref_g = map_tensors(grads.pop("g"), lambda t: t.detach().cpu())
+        out["one_rank_peak"] = _peak(torch, dev)
+        del new, met
+        _free(torch, dev)
+    dist.barrier()
+    _peak(torch, dev, reset=True)
+    mesh = world.device_mesh((1, 2), ("data", "model"), dev)
+    specs = step_mod.train_state_specs(model, mesh,
+                                       make_rules(mesh, TRAIN_RULES))
+    placed = step_mod.place_train_state(state(), mesh, specs)
+    _free(torch, dev)
+    place_peak = _peak(torch, dev)
+    state_bytes = sum(t.to_local().numel() * t.element_size()
+                      for _, t in _paths(placed))
+    step = step_mod.make_train_step(model, opt, mesh)
+    _peak(torch, dev, reset=True)
+    (new, met), step_ms = timed(lambda: step(placed, batch))
+    out["loss"] = float(met["loss"].full_tensor())
+    peak = _peak(torch, dev)
+    leaves = {}
+    for path, got in _paths(new["params"]):
+        whole = got.full_tensor()
+        g = _at(grads["g"], path).full_tensor()
+        if rank == 0:
+            want = _at(ref, path).to(dev)
+            want_g = _at(ref_g, path).to(dev)
+            diff = (whole - want).abs()
+            leaves["/".join(path)] = {
+                "elements": whole.numel(),
+                "max_abs_diff": float(diff.max()),
+                "outside": int((diff > RANKS_PARAM_ATOL + RANKS_PARAM_RTOL
+                                * want.abs()).sum()),
+                "grad_rel": float((g - want_g).abs().max()
+                                  / want_g.abs().max().clamp_min(1e-30)),
+                "grad_sign_flips": int(((g > 0) != (want_g > 0)).sum())}
+        del whole, g
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, {"step_peak": peak,
+                                   "place_peak": place_peak,
+                                   "state_bytes": state_bytes,
+                                   "step_ms": step_ms, "loss": out["loss"]})
+    out.update(leaves=leaves, ranks=every)
+    return out
+
+
+def ranks_decode_rank(rank, dev_name, cfg, batch, prompt, steps):
+    """A rank of the ranks phase's decode check: the prefill of ``batch``
+    prompts of ``prompt`` tokens and ``steps`` greedy decode steps, on
+    rank 0 first on one rank, then on the (1, 2) mesh under the decode
+    rules.  Returns both token lists, the steps' ms and every rank's
+    peak and tokens."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.run import RunConfig
+    from repro_torch.launch import world
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.params import place
+    from repro_torch.parallel.sharding import DECODE_RULES, make_rules
+    from repro_torch.serve.step import make_decode_step, make_prefill_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(dev_name)
+    model = build_model(cfg, RunConfig(**RANKS_SERVE_RUN))
+    toks = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                         generator=torch.Generator(dev).manual_seed(2),
+                         device=dev, dtype=torch.int32)
+
+    def params():
+        p = model.init(torch.Generator(dev).manual_seed(0), dev)
+        ranks_fan_in(torch, p, cfg)
+        return p
+
+    def serve(p, mesh):
+        prefill = make_prefill_step(model, max_len=prompt + steps + 1,
+                                    mesh=mesh)
+        decode = make_decode_step(model, mesh=mesh)
+        whole = (lambda t: t.full_tensor()) if mesh is not None else \
+            (lambda t: t)
+        tokens, ms = [], []
+        # no_grad, not inference_mode: DTensor's views set the version
+        # counters that inference tensors lack
+        with torch.no_grad():
+            for i in range(steps + 1):
+                _sync(torch, dev)
+                t0 = time.perf_counter()
+                if i == 0:
+                    tok, cache = prefill(p, {"tokens": toks})
+                else:
+                    tok, cache = decode(p, tok, cache)
+                tokens.append(whole(tok)[:, 0].tolist())
+                ms.append((time.perf_counter() - t0) * 1e3)
+        return tokens, ms
+
+    out = {}
+    if rank == 0:
+        out["one_rank_tokens"], out["one_rank_ms"] = serve(params(), None)
+        _free(torch, dev)
+    dist.barrier()
+    _peak(torch, dev, reset=True)
+    mesh = world.device_mesh((1, 2), ("data", "model"), dev)
+    placed = place(params(), mesh,
+                   model.param_specs(make_rules(mesh, DECODE_RULES)))
+    _free(torch, dev)
+    out["tokens"], out["mesh_ms"] = serve(placed, mesh)
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, {"peak": _peak(torch, dev),
+                                   "tokens": out["tokens"]})
+    out["ranks"] = every
+    return out
+
+
+def ranks_emulate_rank(rank, dev_name, calib, payload):
+    """A rank of the ranks phase's emulation: a fused, mesh-bound schedule
+    (``payload``) replayed on a (2,) ``"data"`` mesh of distinct ranks on
+    the ``"cuda"`` backend, each segment split at its wire rows into
+    segment kernel launches on this rank's card, the wire steps over the
+    axis's group.  Returns every rank's report, kernel counters, the
+    mesh's wire counts and peak."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import Emulator
+    from repro_torch.core.schedule import rehydrate_schedule
+    from repro_torch.launch import world
+    dev = torch.device(dev_name)
+    mesh = world.RankMesh((2,), ("data",), dev)
+    em = Emulator(calib=calib, backend="cuda", mesh=mesh, device=dev)
+    sched = rehydrate_schedule(payload)
+    zero_counters()
+    _peak(torch, dev, reset=True)
+    dist.barrier()
+    rep = em.replay(sched, command="ranks")
+    _sync(torch, dev)
+    out = {"report": report_dump(rep), "ttc_s": rep.ttc_s,
+           "counters": counters(), "wire_steps": mesh.wire_steps,
+           "wire_calls": mesh.wire_calls, "wire_bytes": mesh.wire_bytes,
+           "peak": _peak(torch, dev)}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, out)
+    return every
+
+
+def split_launches(table) -> int:
+    """The segment kernel launches a segment of ``table`` takes on a mesh
+    of distinct ranks: it splits after each wire row, and each part whose
+    rows burn or stream is one launch."""
+    launches, work = 0, False
+    for ci, mi, wi in table.tolist():
+        work = work or bool(ci or mi)
+        if wi:
+            launches += work
+            work = False
+    return launches + work
+
+
+def phase_ranks(torch, np, calib, rows, dev=None) -> None:
+    """Shards on distinct ranks: RANKS_WORLD processes on the card, the
+    ranks of one gloo process group (``launch.world.spawn``; NCCL takes a
+    card a rank, and here the ranks share one, which ``init_world``
+    refuses).  (a) Qwen2-7B's widths cut to RANKS_LAYERS layers: one
+    float32 train step on a (1, 2) ``("data", "model")`` mesh against the
+    same step on one rank, run first and freed: the loss within
+    RANKS_LOSS_RTOL, the parameters' largest difference and the share of
+    their elements outside the reference's atol / rtol (at most
+    RANKS_OUTSIDE_SHARE); (b) the same widths' prefill and decode steps on
+    (1, 2) under the decode rules: tokens identical to one rank's; (c) the
+    collective cell's profile replayed fused on a (2,) mesh of distinct
+    ranks: every rank's consumed equal to the others' and to the shared
+    mesh's replay, its segment launches' device counts the table's, its
+    wire steps and bytes the quantized schedule's.  Each step's ms and
+    each rank's peak memory are printed; a failed rank fails the script.
+    Adds the ranks' segment launches to the kernels line."""
+    from repro_torch.core import Emulator
+    from repro_torch.launch import world
+    from repro_torch.launch.mesh import make_mesh
+    dev = dev or torch.device("cuda")
+    t_phase = time.perf_counter()
+    backend = "gloo"
+    with tempfile.TemporaryDirectory(prefix="ranks") as store:
+        try:
+            world.init_world(0, RANKS_WORLD, store, "nccl", dev.type)
+            fail("ranks: nccl was not refused for ranks on one card")
+        except ValueError as e:
+            refused = str(e)
+    emit("ranks", step="world", backend=backend, world=RANKS_WORLD,
+         shares_a_card=world.shares_a_card(RANKS_WORLD, dev.type),
+         nccl_refused=refused)
+    _free(torch, dev)
+    cfg = ranks_qwen2_cut()
+
+    def run(fn, *args):
+        with tempfile.TemporaryDirectory(prefix="ranks") as store:
+            t0 = time.perf_counter()
+            out = world.spawn(fn, RANKS_WORLD, dev.type, *args, store=store,
+                              backend=backend, device=dev.type,
+                              timeout=RANKS_TIMEOUT_S)
+            return out, time.perf_counter() - t0
+
+    # (a) the train step
+    got, wall = run(ranks_train_rank, cfg, RANKS_SEQ)
+    rel = abs(got["loss"] - got["one_rank_loss"]) / abs(got["one_rank_loss"])
+    leaves = got["leaves"]
+    outside = sum(v["outside"] for v in leaves.values())
+    elements = sum(v["elements"] for v in leaves.values())
+    share = outside / elements
+    emit("ranks", step="train", model=cfg.name, layers=cfg.num_layers,
+         seq=RANKS_SEQ, loss=got["loss"], one_rank_loss=got["one_rank_loss"],
+         loss_rel=rel, max_abs_param_diff=max(
+             v["max_abs_diff"] for v in leaves.values()),
+         outside=outside, elements=elements, outside_share=share,
+         bound_share=RANKS_OUTSIDE_SHARE, leaves=leaves,
+         one_rank_ms=got["one_rank_ms"], one_rank_peak=got["one_rank_peak"],
+         ranks=got["ranks"], wall_s=wall)
+    if not rel <= RANKS_LOSS_RTOL or any(
+            r["loss"] != got["loss"] for r in got["ranks"]):
+        fail(f"ranks train: loss {got['ranks']} against one rank's "
+             f"{got['one_rank_loss']} ({rel:.3g} relative)")
+    if share > RANKS_OUTSIDE_SHARE:
+        fail(f"ranks train: {outside} of {elements} parameters outside "
+             "the reference's tolerance")
+    bad = {k: v["grad_rel"] for k, v in leaves.items()
+           if not v["grad_rel"] <= RANKS_GRAD_TOL}
+    if bad:
+        fail(f"ranks train: gradients off one rank's: {bad}")
+
+    # (b) prefill and decode
+    got, wall = run(ranks_decode_rank, cfg, RANKS_DECODE_B,
+                    RANKS_DECODE_PROMPT, RANKS_DECODE_STEPS)
+    emit("ranks", step="decode", model=cfg.name, layers=cfg.num_layers,
+         batch=RANKS_DECODE_B, prompt=RANKS_DECODE_PROMPT,
+         steps=RANKS_DECODE_STEPS, tokens=got["tokens"],
+         one_rank_ms=got["one_rank_ms"], mesh_ms=got["mesh_ms"],
+         peaks=[r["peak"] for r in got["ranks"]], wall_s=wall)
+    if any(r["tokens"] != got["one_rank_tokens"] for r in got["ranks"]):
+        fail(f"ranks decode: tokens {[r['tokens'] for r in got['ranks']]} "
+             f"on the mesh, {got['one_rank_tokens']} on one rank")
+
+    # (c) the collective cell on distinct ranks, against the shared mesh
+    prof = collective_profile(QWEN2_7B_TRAIN_WIRE)
+    em = Emulator(calib=calib, backend="cuda",
+                  mesh=make_mesh((2,), ("data",), dev), device=dev)
+    sched = em.compile(prof)
+    want = planned_counts(em, prof)
+    steps = sum(s.collective_iters for s in sched.segments)
+    wire = em.collective.quant().emulated_bytes(steps)
+    shared = report_dump(em.replay(sched, command="ranks"))
+    launches = sum(split_launches(s.table) for s in sched.segments)
+    every, wall = run(ranks_emulate_rank, calib, sched.detach())
+    for r, got in enumerate(every):
+        c = got["counters"]
+        emit("ranks", step="emulate", rank=r, backend="cuda",
+             ttc_s=got["ttc_s"], ttc_note="gloo stages the wire through "
+             "the host: not a wire rate", counters=c,
+             wire_steps=got["wire_steps"], wire_calls=got["wire_calls"],
+             wire_bytes=got["wire_bytes"], table_steps=steps,
+             launches_want=launches,
+             emulated_ici_bytes=got["report"]["emulated_ici_bytes"],
+             peak=got["peak"], wall_s=wall)
+        if got["report"]["consumed"] != shared["consumed"]:
+            fail(f"ranks emulate: rank {r} consumed "
+                 f"{got['report']['consumed']}, the shared mesh "
+                 f"{shared['consumed']}")
+        if dev.type == "cuda" and (
+                c["segment"] != launches
+                or c["segment_iters"] != want["segment_iters"]
+                or c["segment_passes"] != want["segment_passes"]
+                or c["segment_wire"] or c["segment_steps"]):
+            fail(f"ranks emulate: rank {r} counted {c}, want {launches} "
+                 f"launches, {want['segment_iters']} iterations, "
+                 f"{want['segment_passes']} passes")
+        if got["wire_steps"] != steps or got["wire_bytes"] != wire or \
+                got["report"]["emulated_ici_bytes"] != \
+                shared["emulated_ici_bytes"]:
+            fail(f"ranks emulate: rank {r} moved {got['wire_steps']} steps "
+                 f"and {got['wire_bytes']} bytes; want {steps}, {wire}")
+    rows["segment"]["ranks_launches"] = sum(
+        got["counters"]["segment"] for got in every)
+    phase_s = time.perf_counter() - t_phase
+    emit("ranks", step="phase", seconds=phase_s, limit_s=RANKS_PHASE_S)
+    if phase_s > RANKS_PHASE_S:
+        fail(f"ranks: the phase took {phase_s:.1f} s")
+
+
+def ranks_qwen2_cut():
+    """Qwen2-7B at its published widths cut to RANKS_LAYERS layers."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("qwen2-7b"),
+                               num_layers=RANKS_LAYERS)
+
+
 def compute_legs(table) -> int:
     """Rows of a compiled table that burn: the kernel backend launches one
     burn for each."""
@@ -3556,6 +3996,7 @@ def main() -> None:
     host, served = phase_serve(torch, np, rows)
     phase_static(torch, np, calib, served)
     phase_dryrun(torch)
+    phase_ranks(torch, np, calib, rows)
     phase_train(torch, np, calib)
     phase_families(torch, np, rows, calib, host)
     phase_examples(torch)

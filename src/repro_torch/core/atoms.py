@@ -460,8 +460,10 @@ class CollectiveAtom(Atom):
     def __init__(self, mesh=None, axis: Optional[str] = None,
                  kind: str = "all-reduce", backend: str = "torch"):
         """``mesh``: a ``repro_torch.launch.mesh.Mesh`` (every shard on
-        its one device, where the atom runs); ``axis``: the mesh axis the
-        collective runs along (default its last)."""
+        its one device, where the atom runs) or a
+        ``repro_torch.launch.world.RankMesh`` (this rank's shard on its own
+        device, the collective over the axis's process group); ``axis``:
+        the mesh axis the collective runs along (default its last)."""
         self.mesh = mesh
         self.axis = axis or (mesh.axis_names[-1] if mesh is not None
                              else None)
@@ -479,7 +481,11 @@ class CollectiveAtom(Atom):
     def loop_operand(self, block_elems: int = COLL_BLOCK_ELEMS
                      ) -> torch.Tensor:
         """The fused segment's collective carry: one fixed block per shard
-        of the axis, (n, block_elems), on the mesh's device."""
+        of the axis, (n, block_elems), on the mesh's device; on distinct
+        ranks, this rank's blocks, as many as one group call moves
+        (``RankMesh.loop_operand``)."""
+        if not self.mesh.shared:
+            return self.mesh.loop_operand(block_elems)
         n = self.mesh.shape[self.axis]
         return torch.ones((n, block_elems), dtype=torch.float32,
                           device=self.mesh.device)
@@ -493,7 +499,9 @@ class CollectiveAtom(Atom):
         may loop thousands of iterations.  The plain version, a new tensor
         a step: the ``"torch"`` runner walks a segment's rows with it, and
         the ``"cuda"`` runner runs the same step inside the segment kernel
-        (``csrc/coll.cuh``) instead."""
+        (``csrc/coll.cuh``) instead.  On distinct ranks the runners step
+        a segment's wire rows over the axis's group between the rows'
+        launches instead (``RankMesh.loop``)."""
         if self._loop_fn is None:
             kind = self.kind
             self._loop_fn = lambda x: coll_ref.loop_step(x, dim=0, kind=kind)
@@ -502,7 +510,11 @@ class CollectiveAtom(Atom):
     def _coll_fn(self) -> Callable:
         """The per-sample collective over a plan's shards: the sum over the
         axis (no 1/n), all n blocks gathered, or the shards shifted one
-        along the axis."""
+        along the axis; on distinct ranks, of this rank's block over the
+        axis's group (``RankMesh.collective``)."""
+        if not self.mesh.shared:
+            mesh, axis, kind = self.mesh, self.axis, self.kind
+            return lambda x: mesh.collective(x, axis, kind)
         fn = coll_ops.collective if self.backend == "cuda" \
             else coll_ref.collective
         dim, kind = self.mesh.dim(self.axis), self.kind
@@ -544,13 +556,20 @@ class CollectiveAtom(Atom):
         key = ("collective", self.kind, self.axis, mesh_id, n_elems)
         return self._cached(key, lambda: self._build_plan(n_elems))
 
-    def _build_plan(self, n_elems: int) -> Plan:
-        """A plan over ``n_elems`` float32 along the axis: n_elems / n on
-        every shard of the mesh (replicated across its other axes)."""
-        fn = self._coll_fn()
+    def plan_operand(self, n_elems: int) -> torch.Tensor:
+        """The operand of an ``n_elems`` plan: n_elems / n float32 on every
+        shard of the mesh (replicated across its other axes), or, on
+        distinct ranks, this rank's n_elems / n."""
         n = self.mesh.shape[self.axis]
-        x = torch.ones(tuple(self.mesh.shape.values()) + (n_elems // n,),
-                       dtype=torch.float32, device=self.mesh.device)
+        lead = tuple(self.mesh.shape.values()) if self.mesh.shared else ()
+        return torch.ones(lead + (n_elems // n,), dtype=torch.float32,
+                          device=self.mesh.device)
+
+    def _build_plan(self, n_elems: int) -> Plan:
+        """A plan over ``n_elems`` float32 along the axis
+        (``plan_operand``)."""
+        fn = self._coll_fn()
+        x = self.plan_operand(n_elems)
         return Plan(lambda: fn(x), self.quantized_wire_bytes(n_elems))
 
     def seconds(self, wire_bytes: float, hw: HardwareSpec) -> float:

@@ -32,7 +32,10 @@ to each other and to the JAX package's.  Wire bytes execute when the
 emulator owns a mesh (``Emulator(mesh=...)``, ``attach_collective``): per
 sample through the collective atom, fused as the segment's wire rows; a
 meshless emulator accounts them without moving them.  A mesh's shards all
-live on the emulator's device (``repro_torch.launch.mesh``).
+live on the emulator's device (``repro_torch.launch.mesh``), or, on a
+``RankMesh`` (``repro_torch.launch.world``), this rank's shard does and
+the wire bytes move over the axis's process group: per sample and
+between the segment's launches, split at its wire rows.
 ``EmulationReport`` and ``FleetReport`` serialize exactly as the JAX
 package's do, so reports cross between the two.
 """

@@ -308,6 +308,12 @@ class SegmentRunner:
     carry, stepped in place by launches that serialize on the stream,
     starts at ones, a fixed point of every kind's step.
 
+    On a mesh of distinct ranks (``launch.world.RankMesh``) no launch on
+    this rank's device can take the wire steps: a mesh-bound segment is
+    split at its wire rows (``_launch_split``), the rows between them one
+    dispatch of either backend, each wire row's steps over the axis's
+    process group in between.
+
     ``collective`` (a mesh-bound ``CollectiveAtom``) supplies the
     per-iteration wire step and its fixed-block carry; without one,
     launching a mesh-bound segment raises — a meshless replayer must
@@ -392,6 +398,8 @@ class SegmentRunner:
                 "but this runner has no mesh-bound CollectiveAtom; "
                 "recompile the schedule with keep_collectives=True to "
                 "replay wire legs per-sample, or give the emulator a mesh")
+        if with_coll and not self.collective.mesh.shared:
+            return self._launch_split(segment, with_c, with_m)
         padded = _next_pow2(segment.n_rows)
         table = np.zeros((padded, 3), dtype=np.int32)
         table[:segment.n_rows] = segment.table
@@ -408,6 +416,51 @@ class SegmentRunner:
             self._compute_operand() if with_c else None,
             self._ring() if with_m else None, w, table,
             self.collective.loop_body() if with_coll else None))
+
+    def _launch_split(self, segment: FusedSegment, with_c: bool,
+                      with_m: bool) -> SegmentRun:
+        """A mesh-bound segment on distinct ranks (``RankMesh``), whose
+        wire steps no launch on this rank's device can take: split at its
+        wire rows.  The burns and passes of the rows up to a wire row (its
+        own included) run as one dispatch of this runner's backend (one
+        segment kernel launch on ``"cuda"``, synced and its device counts
+        settled; the host walk on ``"torch"``), then that row's steps run
+        over the axis's group (``RankMesh.loop``).  The burn's
+        carry runs on across the dispatches.  Returns the carries, every
+        dispatch done and settled."""
+        x = self._compute_operand() if with_c else None
+        ring = self._ring() if with_m else None
+        coll, w = self.collective, self._coll_operand()
+        y = slot = None
+        rows: List = []
+
+        def dispatch():
+            nonlocal y, slot
+            table = np.asarray(rows, dtype=np.int32).reshape(-1, 3)
+            rows.clear()
+            c, m = int(table[:, 0].sum()), int(table[:, 1].sum())
+            if not (c or m):
+                return
+            x_in = (y if y is not None else x) if c else None
+            if self.backend == "cuda":
+                run = segment_ops.segment(
+                    table, x=x_in, ring=ring if m else None)
+                sync(run.tensors())
+                run.settle()
+                y_out, s_out = run.y, run.slot
+            else:
+                y_out, s_out, _ = self._segment(
+                    x_in, ring if m else None, None, table)
+            y = y_out if c else y
+            slot = s_out if m else slot
+
+        for ci, mi, wi in segment.table.tolist():
+            rows.append((ci, mi, 0))
+            if wi:
+                dispatch()
+                w = coll.mesh.loop(w, coll.axis, coll.kind, wi)
+        dispatch()
+        return SegmentRun(y, slot, w)
 
     def run(self, segment: FusedSegment) -> bool:
         """Dispatch, sync and settle: the segment's samples are done on

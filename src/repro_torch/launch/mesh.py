@@ -1,17 +1,25 @@
-"""Device meshes for the collective atom.
+"""Device meshes: which hold shards on distinct ranks, and which do not.
 
-A ``Mesh`` names its axes and their sizes, as the JAX package's
-``jax.make_mesh`` does, and holds one ``torch.device`` a shard in
-``devices`` (a numpy object array in the mesh's shape).  One process owns
-every shard of its mesh (a single controller, as in the JAX package).  In
-this package every shard of a mesh lives on ONE device, the card or the
-CPU: the counterpart of the JAX package's forced host devices.  The mesh
-says so (``shared``), and its shards are one tensor of shape
-``(*shape.values(), block)`` on that device, a collective running along
-the dimension of its axis.  Shard ids are 0 .. N-1 in the mesh's order,
-where the JAX package uses each device's ``id``, so plan keys that name a
-mesh are the same tuple in both packages.  Shards on distinct cards are
-not built here.
+* ``make_mesh``: the collective atom's ``Mesh``.  It names its axes and
+  their sizes, as the JAX package's ``jax.make_mesh`` does, and holds one
+  ``torch.device`` a shard in ``devices`` (a numpy object array in the
+  mesh's shape).  One process owns every shard of its mesh (a single
+  controller, as in the JAX package), and every shard lives on ONE
+  device, the card or the CPU: the counterpart of the JAX package's
+  forced host devices.  The mesh says so (``shared``), and its shards are
+  one tensor of shape ``(*shape.values(), block)`` on that device, a
+  collective running along the dimension of its axis.  Shard ids are
+  0 .. N-1 in the mesh's order, where the JAX package uses each device's
+  ``id``, so plan keys that name a mesh are the same tuple in both
+  packages.
+* ``fake_device_mesh`` and ``make_production_mesh``: ``DeviceMesh``es
+  over fake process groups of 256 or 512 ranks, for the dry-run; their
+  shards are meta tensors of this process, and no collective moves data.
+* Shards on distinct ranks, each rank a process holding its own shards on
+  its own device, joined by a real process group, are built in
+  ``repro_torch.launch.world``: ``RankMesh`` (a ``Mesh`` with ``shared``
+  False, for the collective atom) and ``device_mesh`` (a ``DeviceMesh``,
+  for the sharded train and serve steps).
 """
 from __future__ import annotations
 

@@ -522,10 +522,16 @@ def attention(p, x, *, cfg: ModelConfig, positions, is_local=False,
         # Masks follow token order (RoPE positions may repeat, e.g. M-RoPE).
         q_pos = torch.arange(S, device=x.device)
         if impl == "full":
-            out = attend_full(qg, ka, va, q_pos=q_pos, k_pos=q_pos,
-                              causal=causal, window=window,
-                              local_flag=local_flag,
-                              softcap=a.logit_softcap)
+            # on DTensors, on each device's shards of batch and KV heads,
+            # as blocked attention runs: the scores' einsum merges the
+            # batch with the sharded heads, a reshape DTensor cannot make
+            # without a collective (torch 2.11 refuses it)
+            out = shard_local(
+                lambda q_, k_, v_: attend_full(
+                    q_, k_, v_, q_pos=q_pos, k_pos=q_pos, causal=causal,
+                    window=window, local_flag=local_flag,
+                    softcap=a.logit_softcap),
+                qg, ka, va, dims=(0, 2))
         elif impl == "cuda":
             from repro_torch.kernels import flash_attention as fa
             if local_flag is not None:
@@ -548,14 +554,19 @@ def attention(p, x, *, cfg: ModelConfig, positions, is_local=False,
         new_cache = None
         if cache is not None:  # prefill fills the cache
             T = cache["k"].shape[1]
-            kpad = _pad_to(k, T).to(cache["k"].dtype)
-            vpad = _pad_to(v, T).to(cache["v"].dtype)
+            # padded on each device's shards of batch and KV heads: the
+            # sequence is whole there (torch 2.11's DTensor cannot plan
+            # the pad of a head-sharded DTensor)
+            kpad = shard_local(lambda t: _pad_to(t, T), k,
+                               dims=(0, 2)).to(cache["k"].dtype)
+            vpad = shard_local(lambda t: _pad_to(t, T), v,
+                               dims=(0, 2)).to(cache["v"].dtype)
             new_cache = {"k": shard(kpad, "batch", "cache_seq", None, "head_dim"),
                          "v": shard(vpad, "batch", "cache_seq", None, "head_dim"),
                          "pos": torch.full((B,), S, dtype=torch.int32,
                                            device=x.device)}
 
-    out = out.reshape(B, S, hq * hd)
+    out = merge_ready(out, 2, out.dim()).reshape(B, S, hq * hd)
     out = seq_product(out, merge_ready(p["wo"].to(x.dtype), 0, 2).reshape(
         hq * hd, D))
     return out, new_cache

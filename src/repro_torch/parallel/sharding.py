@@ -308,10 +308,17 @@ def _along(x, dims):
 
 def local_like(t, x, dims):
     """The local shard of ``t`` laid out as ``x`` is along tensor ``dims``
-    and replicated along the others (a collective where it was not);
-    ``t`` itself where it is not a DTensor."""
+    and replicated along the others (a collective where it was not).  A
+    plain ``t`` beside a DTensor ``x`` is the whole value, replicated (as
+    under ``use_sharding``), so it is cut to the same shard with no
+    collective; beside a plain ``x``, ``t`` itself."""
     if not is_dtensor(t):
-        return t
+        if not is_dtensor(x):
+            return t
+        from torch.distributed.tensor import DTensor, Replicate
+        t = DTensor.from_local(t, x.device_mesh,
+                               (Replicate(),) * x.device_mesh.ndim,
+                               run_check=False)
     place = _along(x, dims)
     if tuple(t.placements) != place:
         t = t.redistribute(x.device_mesh, place)
@@ -333,15 +340,29 @@ def unsharded(x, dims):
     return x.redistribute(x.device_mesh, want)
 
 
+def _uneven(x, dim: int) -> bool:
+    """Whether DTensor ``x`` splits its dim ``dim`` over more shards than
+    divide it (Hymba's 5 KV heads over a mesh axis of 2)."""
+    n = 1
+    for i, p in enumerate(x.placements):
+        if p.is_shard(dim):
+            n *= x.device_mesh.size(i)
+    return x.shape[dim] % n != 0
+
+
 def merge_ready(x, start: int, end: int):
     """``x`` ready for a reshape that merges its dims ``start`` .. ``end -
-    1``: gathered along those dims but the first (``unsharded``).  For a
-    weight, the gather an FSDP layer makes; for an activation [B, S, D]
-    before a product with a weight (which flattens its leading dims), the
-    sequence all-gather of Megatron sequence parallelism.  DTensor would
-    otherwise make a strided shard of the merged dim, whose redistribution
-    gathers far more than the tensor's bytes, or refuse the reshape."""
-    return unsharded(x, range(start + 1, end))
+    1``: gathered along those dims but the first (``unsharded``), and
+    along the first too where it is split unevenly, which DTensor cannot
+    flatten (GSPMD pads such a shard; the gather keeps the values exact).
+    For a weight, the gather an FSDP layer makes; for an activation [B, S,
+    D] before a product with a weight (which flattens its leading dims),
+    the sequence all-gather of Megatron sequence parallelism.  DTensor
+    would otherwise make a strided shard of the merged dim, whose
+    redistribution gathers far more than the tensor's bytes, or refuse
+    the reshape."""
+    first = start if is_dtensor(x) and _uneven(x, start) else start + 1
+    return unsharded(x, range(first, end))
 
 
 class _GatheredGrad(torch.autograd.Function):
@@ -355,6 +376,20 @@ class _GatheredGrad(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return merge_ready(g, 0, g.dim() - 1)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity whose backward makes the gradient contiguous: a local
+    shard's gradient (``shard_local``) goes back into a DTensor, whose
+    views of it need strides a permuted product's gradient lacks."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
 
 
 def seq_product(x, w):
@@ -386,8 +421,9 @@ def shard_local(fn, x, *others, dims: Tuple[int, ...], whole=()):
         return fn(x, *others, *whole)
     from torch.distributed.tensor import DTensor
     mesh, place = x.device_mesh, _along(x, dims)
-    out = fn(*(local_like(t, x, dims) for t in (x, *others)),
-             *(local_like(t, x, ()) for t in whole))
+    out = fn(*(_ContiguousGrad.apply(local_like(t, x, dims))
+               for t in (x, *others)),
+             *(_ContiguousGrad.apply(local_like(t, x, ())) for t in whole))
 
     def wrap(t):
         if isinstance(t, (tuple, list)):
@@ -517,6 +553,36 @@ def shard(x, *axes: Optional[str]):
         return x.redistribute(ctx.mesh, placements)
     from torch.distributed.tensor import distribute_tensor
     return distribute_tensor(x, ctx.mesh, placements, src_data_rank=None)
+
+
+def batch_laid(inputs):
+    """A step's inputs (a tensor or a dict of them) laid out along their
+    batch by the rules' ``batch`` axes and replicated along the rest, as
+    the dry-run's input specs lay them out (``launch/specs.py``): dim 0,
+    or dim 1 of M-RoPE's [3, B, S] ``positions``.  Each rank holds the
+    whole of a plain tensor (the JAX package's uncommitted input to a
+    jitted step) and keeps its own rows, with no collective.  From a
+    replicated batch, DTensor would scatter the vocab-sharded embedding's
+    masked partial sums over the batch with the whole batch's mask, which
+    fails.  DTensors, scalars, and every input outside a sharding context
+    are returned as they are."""
+    ctx = current_ctx()
+    if ctx is None:
+        return inputs
+
+    def one(x, key=None):
+        if isinstance(x, dict):
+            return {k: one(v, k) for k, v in x.items()}
+        if not isinstance(x, torch.Tensor) or is_dtensor(x) or x.dim() == 0:
+            return x
+        lead = (None, "batch") if key == "positions" and x.dim() == 3 \
+            else ("batch",)
+        axes = lead + (None,) * (x.dim() - len(lead))
+        spec = ctx.rules.pspec_checked(tuple(x.shape), axes)
+        from torch.distributed.tensor import distribute_tensor
+        return distribute_tensor(x, ctx.mesh, spec_placements(spec, ctx.mesh),
+                                 src_data_rank=None)
+    return one(inputs)
 
 
 def named_sharding(*axes: Optional[str]) -> Optional[NamedSharding]:

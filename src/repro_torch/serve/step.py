@@ -2,7 +2,8 @@
 decode (one token for the whole batch against the cache).  Greedy argmax
 sampling, as in the JAX package.  With a mesh, each call runs under
 ``use_sharding`` with the prefill or decode rule table on parameters,
-inputs and cache of DTensors.
+inputs and cache of DTensors; plain inputs are laid out along their
+batch (``batch_laid``).
 """
 from __future__ import annotations
 
@@ -10,7 +11,8 @@ from typing import Optional
 
 from repro_torch.models.model_zoo import Model
 from repro_torch.parallel.sharding import (DECODE_RULES, PREFILL_RULES,
-                                           first_argmax, use_sharding)
+                                           batch_laid, first_argmax,
+                                           use_sharding)
 
 
 def greedy_token(model: Model, params, hidden_last):
@@ -25,6 +27,7 @@ def make_prefill_step(model: Model, max_len: int,
     (``max_len`` when None)."""
     def prefill_step(params, batch):
         with use_sharding(mesh, rules_table):
+            batch = batch_laid(batch)
             leaf = batch.get("tokens", batch.get("tgt_tokens",
                                                  batch.get("embeds")))
             B = leaf.shape[0]
@@ -43,7 +46,8 @@ def make_decode_step(model: Model, mesh=None, rules_table=DECODE_RULES):
     def decode_step(params, tokens, cache):
         """One token; ``cache`` is updated in place and returned."""
         with use_sharding(mesh, rules_table):
-            hidden, cache, _ = model.forward(params, {"tokens": tokens},
+            hidden, cache, _ = model.forward(params,
+                                             {"tokens": batch_laid(tokens)},
                                              cache=cache, decode=True)
             tok = greedy_token(model, params, hidden)
             return tok, cache

@@ -16,12 +16,12 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.models.model_zoo import Model
-from repro_torch.models.params import cast_tree, map_tensors
+from repro_torch.models.params import cast_tree, map_tensors, place
 from repro_torch.optim.adamw import (OptConfig, adamw_update, init_opt_state,
                                      zero1_specs)
 from repro_torch.parallel.sharding import (TRAIN_RULES, P, Rules,
-                                           abstract_tensor, is_dtensor,
-                                           use_sharding)
+                                           abstract_tensor, batch_laid,
+                                           is_dtensor, use_sharding)
 from repro_torch.train.loss import cross_entropy
 
 AUX_LOSS_KEYS = ("moe_load_balance", "moe_router_z")
@@ -94,7 +94,7 @@ def make_train_step(model: Model, opt_cfg: OptConfig, mesh=None,
 
     def train_step(state, batch):
         with use_sharding(mesh, rules_table):
-            return _train_step(state, batch)
+            return _train_step(state, batch_laid(batch))
 
     def _train_step(state, batch):
         params = state["params"]
@@ -142,6 +142,15 @@ def init_train_state(model: Model, generator: torch.Generator,
     if compress is not None:
         state["ef_error"] = compress.init_error(params)
     return state
+
+
+def place_train_state(state, mesh, specs):
+    """The train state laid out on ``mesh`` by ``specs``
+    (``train_state_specs``): parameters TP, moments ZeRO-1, each rank
+    keeping its own shards of the state every rank built from one seed
+    (the JAX package's ``jax.device_put`` of each leaf to its
+    ``NamedSharding``)."""
+    return place(state, mesh, specs)
 
 
 def train_state_specs(model: Model, mesh, rules: Rules, compress=None):

@@ -681,3 +681,39 @@ def test_ssd_scan_on_the_card_matches_its_oracle(dev):
     leaves = [t.detach().requires_grad_() for t in (x, dt * 40, A, Bm, Cm)]
     ssm.ssd_chunked(*leaves, chunk=8).square().sum().backward()
     assert all(torch.isfinite(t.grad).all() for t in leaves)
+
+
+def _rank_collectives(rank, dev_name, blk):
+    """On each of two ranks sharing the card: every kind of ``RankMesh``
+    collective against its plain version on all ranks' blocks, and a
+    DTensor gathered whole; returns the largest errors."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+    from repro_torch.launch import world
+    dev = torch.device(dev_name)
+    mesh = world.RankMesh((2,), ("model",), dev)
+    blocks = torch.from_numpy(blk).to(dev)
+    errs = {}
+    for kind in wref.KINDS:
+        want = wref.collective(blocks, dim=0, kind=kind)[rank]
+        got = mesh.collective(blocks[rank].clone(), "model", kind)
+        errs[kind] = float((got - want).abs().max())
+    dmesh = world.device_mesh((2,), ("model",), dev)
+    whole = distribute_tensor(blocks, dmesh, (Shard(0),),
+                              src_data_rank=None).full_tensor()
+    errs["dtensor_gather"] = float((whole - blocks).abs().max())
+    return errs
+
+
+def test_rank_mesh_collectives_on_the_card(dev, tmp_path):
+    """Two gloo ranks on the one card (NCCL takes a card a rank): the
+    collectives move the right values, the all-gather through the host
+    (gloo's functional one ends both ranks on CUDA tensors)."""
+    from repro_torch.launch import world
+    blk = np.random.default_rng(4).standard_normal((2, 4096)).astype(
+        np.float32)
+    errs = world.spawn(_rank_collectives, 2, "cuda", blk,
+                       store=str(tmp_path), backend="gloo", device="cuda",
+                       timeout=300)
+    assert errs["all-gather"] == errs["collective-permute"] == 0.0
+    assert errs["dtensor_gather"] == 0.0
+    assert errs["all-reduce"] <= 1e-6

@@ -433,3 +433,82 @@ def test_dense_path_shards_at_the_references_sites(monkeypatch):
                decode=True)
     assert seen["torch"] == seen["jax"]
     assert len(seen["jax"]) == 6          # decode's ("batch", "seq", "embed")
+
+
+# ---------------------------------------------------------------------------
+# heads split unevenly over a mesh axis
+# ---------------------------------------------------------------------------
+
+def test_merge_ready_gathers_an_unevenly_split_first_dim_only():
+    """``merge_ready`` gathers the merged dims but the first, and the
+    first too where its shards are uneven (5 heads over 2), which DTensor
+    cannot flatten; an even first dim keeps its shards, and a plain
+    tensor is returned as it is, so the unsharded path runs the same
+    ops."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    mesh = fake_device_mesh((2, 2), ("pod", "model"))
+    plain = torch.zeros(1, 1, 5, 2, 16)
+    assert ts.merge_ready(plain, 2, 5) is plain
+    for heads, want in ((5, Replicate()), (4, Shard(2))):
+        x = distribute_tensor(
+            torch.empty(1, 1, heads, 2, 16, device="meta"), mesh,
+            (Shard(2), Shard(3)), src_data_rank=None)
+        got = ts.merge_ready(x, 2, 5)
+        assert tuple(got.placements) == (want, Replicate())
+        assert tuple(got.reshape(1, 1, heads * 32).shape) == \
+            (1, 1, heads * 32)
+
+
+def test_uneven_kv_heads_lower_their_decode_step_on_a_pod_mesh():
+    """Hymba's reduced config with its published 5 KV heads (10 query
+    heads) does not divide the 'pod' axis of 2: its long-context decode
+    step lowers on a fake (2, 2, 2) mesh and gives a dry-run record (the
+    ROADMAP's erring hymba-1.5b long_500k cell on 2 x 16 x 16 met
+    "Cannot flatten unevenly sharded tensor" at the attention output's
+    merging reshape)."""
+    import dataclasses as dc
+    from repro_torch.launch import dryrun
+    cfg = dc.replace(reduced_config(get_config("hymba-1.5b")),
+                     num_heads=10, num_kv_heads=5)
+    shape = dc.replace(SHAPES["long_500k"], seq_len=64, global_batch=1)
+    mesh = fake_device_mesh((2, 2, 2), ("pod", "data", "model"))
+    low, meta = dryrun.lower_cell(cfg, shape, mesh, dryrun._run_config(shape))
+    rec = dryrun.analyze(low, mesh, meta)
+    assert rec["n_devices"] == 8
+    assert rec["mesh"] == {"pod": 2, "data": 2, "model": 2}
+    assert rec["memory"]["per_device_total"] > 0
+    assert rec["walker"]["flops"] > 0
+
+
+def test_batch_laid_lays_plain_inputs_out_along_their_batch():
+    """A step's plain inputs (the whole value on every rank) are laid out
+    along their batch by the rules, M-RoPE's [3, B, S] positions along
+    dim 1, with no collective; DTensors, scalars and every input outside
+    a sharding context are returned as they are."""
+    from torch.distributed.tensor import Replicate, Shard
+    tokens = torch.zeros(8, 16, dtype=torch.int32, device="meta")
+    assert ts.batch_laid({"tokens": tokens})["tokens"] is tokens
+    mesh = fake_device_mesh((4, 2), ("data", "model"))
+    with ts.use_sharding(mesh, ts.TRAIN_RULES):
+        got = ts.batch_laid({"tokens": tokens,
+                             "positions": torch.zeros(3, 8, 16,
+                                                      device="meta"),
+                             "step": torch.zeros((), device="meta")})
+        assert tuple(got["tokens"].placements) == (Shard(0), Replicate())
+        assert tuple(got["tokens"].to_local().shape) == (2, 16)
+        assert tuple(got["positions"].placements) == (Shard(1), Replicate())
+        assert not ts.is_dtensor(got["step"])
+        assert ts.batch_laid(got["tokens"]) is got["tokens"]
+
+
+def test_local_like_cuts_a_plain_tensor_to_the_dtensors_shard():
+    """Beside a DTensor, a plain tensor is the whole value (replicated):
+    ``local_like`` cuts it to the same shard along the named dims, as the
+    decode cache write cuts the whole batch's positions to its rows."""
+    from torch.distributed.tensor import distribute_tensor, Shard
+    mesh = fake_device_mesh((4, 2), ("data", "model"))
+    cache = distribute_tensor(torch.empty(8, 16, 2, 4, device="meta"), mesh,
+                              (Shard(0), Shard(1)), src_data_rank=None)
+    pos = torch.arange(8, device="meta")
+    assert tuple(ts.local_like(pos, cache, (0,)).shape) == (2,)
+    assert ts.local_like(pos, pos, (0,)) is pos
