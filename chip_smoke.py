@@ -148,10 +148,10 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
              the train phase's 4-layer step of 1 x 4096 tokens): argument
              bytes exact, the card's counted flops within 1e-9, its peak of
              allocated memory within 1% of ``per_device_total``
-  ranks      shards on distinct ranks: two processes on the card, the
-             ranks of one gloo process group (NCCL takes a card a rank
-             and is refused here; gloo stages CUDA tensors through the
-             host).  Qwen2-7B's widths cut to 2 layers, its stacked
+  ranks      shards on distinct ranks: two processes, the ranks of one
+             process group: NCCL where each rank has a card of its own,
+             else gloo, which stages CUDA tensors through the host (one
+             card: both ranks on it).  Qwen2-7B's widths cut to 2 layers, its stacked
              weights at the std of their true fan-in: one float32 train
              step on a (1, 2) ("data", "model") mesh against the same step
              on one rank run first (loss, each leaf's gradients, the
@@ -161,7 +161,7 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
              replayed fused on a (2,) mesh of ranks (consumed equal to the
              shared mesh's, each rank's segment launch with exact device
              counts, the wire steps and bytes the quantized schedule's,
-             ``ttc_s`` host-staged); each step's ms and each rank's peak
+             ``ttc_s`` host-staged under gloo); each step's ms and each rank's peak
   examples   every ``examples/torch_*.py`` on the card as a subprocess:
              exit 0, wall time
 
@@ -391,11 +391,12 @@ DRYRUN_DEVICE_BYTES = 80e9
 # within DRYRUN_PHASE_S
 DRYRUN_FLOPS_TOL, DRYRUN_MEMORY_TOL, DRYRUN_PHASE_S = 1e-9, 0.01, 150.0
 
-# shards on distinct ranks: two processes on the card, the ranks of one
-# gloo group (NCCL takes a card a rank).  Qwen2-7B's widths cut to 2
-# layers (1.56e9 parameters: 18.7 GB of float32 weights and moments on one
-# rank, half a rank on the (1, 2) mesh), its stacked weights at the std
-# of their true fan-in (ranks_fan_in), one float32 step on 1 x 1024
+# shards on distinct ranks: two processes, the ranks of one group (NCCL
+# where each has a card of its own, else gloo, both on the one card).
+# Qwen2-7B's widths cut to 2 layers (1.56e9 parameters: 18.7 GB of
+# float32 weights and moments on one rank, half a rank on the (1, 2)
+# mesh), its stacked weights at the std of their true fan-in
+# (ranks_fan_in, tools/fan_in_witness.py), one float32 step on 1 x 1024
 # tokens under the reference's optimizer of tests/test_distributed.py (lr
 # 1e-2 from the first step, so AdamW's first update, lr g / (|g| + eps),
 # is whole); the loss within the reference's 1e-4, the parameters at its
@@ -3559,33 +3560,20 @@ def _free(torch, dev) -> None:
         torch.cuda.empty_cache()
 
 
-def _paths(tree, path=()):
-    """(path, leaf) of a nested dict, in sorted key order."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _paths(tree[k], path + (k,))
-    else:
-        yield path, tree
-
-
-def _at(tree, path):
-    for k in path:
-        tree = tree[k]
-    return tree
-
-
 def ranks_fan_in(torch, params, cfg) -> None:
     """Rescale, in place, the stacked weight matrices of ``params`` (drawn
     by ``Model.init``) to std 1 / sqrt(d_model).  The JAX package draws a
-    stacked leaf at std 1 / sqrt(its leading dim), the layer count, which
-    at these widths saturates the attention: there float32's own
-    gradients differ from float64's by 10-43% of a leaf's largest on one
-    device (Qwen2-7B's heads and d_model, 2 layers, on the CPU), so no two
-    float32 orders of a step's sums can be held to each other."""
+    stacked leaf at std 1 / sqrt(its leading dim), the layer count
+    (ROADMAP queue 3), which at these widths saturates the attention
+    (logits' std ~1800): there one float32 rounding of the weights moves
+    a leaf's gradients by up to 8% of their largest, and at this std by
+    2.3e-6, so only here can two float32 orders of a step's sums be held
+    to each other (``tools/fan_in_witness.py``)."""
+    from repro_torch.models.params import map_tensors
+    scale = math.sqrt(cfg.num_layers / cfg.d_model)
     with torch.no_grad():
-        for _, w in _paths(params["layers"]):
-            if w.dim() >= 3:
-                w.mul_(math.sqrt(cfg.num_layers / cfg.d_model))
+        map_tensors(params["layers"],
+                    lambda w: w.mul_(scale) if w.dim() >= 3 else w)
 
 
 def ranks_train_rank(rank, dev_name, cfg, seq):
@@ -3604,10 +3592,11 @@ def ranks_train_rank(rank, dev_name, cfg, seq):
     from repro_torch.configs.run import RunConfig
     from repro_torch.launch import world
     from repro_torch.models.model_zoo import build_model
-    from repro_torch.models.params import map_tensors
+    from repro_torch.models.params import map_tensors, place
     from repro_torch.optim.adamw import OptConfig
     from repro_torch.parallel.sharding import TRAIN_RULES, make_rules
     from repro_torch.train import step as step_mod
+    from torch.utils._pytree import keystr, tree_flatten_with_path
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(dev_name)
@@ -3655,25 +3644,27 @@ def ranks_train_rank(rank, dev_name, cfg, seq):
     mesh = world.device_mesh((1, 2), ("data", "model"), dev)
     specs = step_mod.train_state_specs(model, mesh,
                                        make_rules(mesh, TRAIN_RULES))
-    placed = step_mod.place_train_state(state(), mesh, specs)
+    placed = place(state(), mesh, specs)
     _free(torch, dev)
     place_peak = _peak(torch, dev)
     state_bytes = sum(t.to_local().numel() * t.element_size()
-                      for _, t in _paths(placed))
+                      for t in _leaves(placed))
     step = step_mod.make_train_step(model, opt, mesh)
     _peak(torch, dev, reset=True)
     (new, met), step_ms = timed(lambda: step(placed, batch))
     out["loss"] = float(met["loss"].full_tensor())
     peak = _peak(torch, dev)
-    leaves = {}
-    for path, got in _paths(new["params"]):
-        whole = got.full_tensor()
-        g = _at(grads["g"], path).full_tensor()
+    def named(tree):
+        return {keystr(k): t for k, t in tree_flatten_with_path(tree)[0]}
+    leaves, gs = {}, named(grads["g"])
+    if rank == 0:
+        ref, ref_g = named(ref), named(ref_g)
+    for name, got in named(new["params"]).items():
+        whole, g = got.full_tensor(), gs[name].full_tensor()
         if rank == 0:
-            want = _at(ref, path).to(dev)
-            want_g = _at(ref_g, path).to(dev)
+            want, want_g = ref[name].to(dev), ref_g[name].to(dev)
             diff = (whole - want).abs()
-            leaves["/".join(path)] = {
+            leaves[name] = {
                 "elements": whole.numel(),
                 "max_abs_diff": float(diff.max()),
                 "outside": int((diff > RANKS_PARAM_ATOL + RANKS_PARAM_RTOL
@@ -3800,10 +3791,9 @@ def split_launches(table) -> int:
 
 
 def phase_ranks(torch, np, calib, rows, dev=None) -> None:
-    """Shards on distinct ranks: RANKS_WORLD processes on the card, the
-    ranks of one gloo process group (``launch.world.spawn``; NCCL takes a
-    card a rank, and here the ranks share one, which ``init_world``
-    refuses).  (a) Qwen2-7B's widths cut to RANKS_LAYERS layers: one
+    """Shards on distinct ranks: RANKS_WORLD processes, the ranks of one
+    process group (``launch.world.spawn``): NCCL where each rank has a
+    card of its own, else gloo, the ranks sharing the card.  (a) Qwen2-7B's widths cut to RANKS_LAYERS layers: one
     float32 train step on a (1, 2) ``("data", "model")`` mesh against the
     same step on one rank, run first and freed: the loss within
     RANKS_LOSS_RTOL, the parameters' largest difference and the share of
@@ -3821,16 +3811,10 @@ def phase_ranks(torch, np, calib, rows, dev=None) -> None:
     from repro_torch.launch.mesh import make_mesh
     dev = dev or torch.device("cuda")
     t_phase = time.perf_counter()
-    backend = "gloo"
-    with tempfile.TemporaryDirectory(prefix="ranks") as store:
-        try:
-            world.init_world(0, RANKS_WORLD, store, "nccl", dev.type)
-            fail("ranks: nccl was not refused for ranks on one card")
-        except ValueError as e:
-            refused = str(e)
+    own = dev.type == "cuda" and not world.shares_a_card(RANKS_WORLD)
+    backend = "nccl" if own else "gloo"
     emit("ranks", step="world", backend=backend, world=RANKS_WORLD,
-         shares_a_card=world.shares_a_card(RANKS_WORLD, dev.type),
-         nccl_refused=refused)
+         cards=torch.cuda.device_count(), card_a_rank=own)
     _free(torch, dev)
     cfg = ranks_qwen2_cut()
 
@@ -3896,7 +3880,8 @@ def phase_ranks(torch, np, calib, rows, dev=None) -> None:
         c = got["counters"]
         emit("ranks", step="emulate", rank=r, backend="cuda",
              ttc_s=got["ttc_s"], ttc_note="gloo stages the wire through "
-             "the host: not a wire rate", counters=c,
+             "the host: not a wire rate" if backend == "gloo" else "nccl",
+             counters=c,
              wire_steps=got["wire_steps"], wire_calls=got["wire_calls"],
              wire_bytes=got["wire_bytes"], table_steps=steps,
              launches_want=launches,

@@ -32,7 +32,7 @@ import queue
 import time
 import traceback
 from datetime import timedelta
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +41,9 @@ from repro_torch.device import DeviceLike
 from repro_torch.launch.mesh import Mesh
 
 BACKENDS = ("gloo", "nccl")
+
+#: seconds a collective waits for the other ranks of its group
+TIMEOUT_S = 300.0
 
 #: blocks of the wire carry a group call moves at most (``RankMesh.loop``):
 #: 512 x 128 KiB = 64 MiB a call
@@ -68,15 +71,14 @@ def shares_a_card(world: int, device: DeviceLike = "cuda") -> bool:
 
 
 def init_world(rank: int, world: int, store, backend: str,
-               device: DeviceLike = "cuda",
-               timeout: float = 300.0) -> torch.device:
+               device: DeviceLike = "cuda") -> torch.device:
     """Join rank ``rank`` to a process group of ``world`` ranks and return
     its device (``rank_device``; the current CUDA device where it is a
     card).  ``store``: a directory, where the ranks meet in a
     ``FileStore``, or a ``torch.distributed.Store``.  ``backend``:
     ``"gloo"`` or ``"nccl"``; NCCL needs each rank on a card of its own and
-    raises for CPU ranks or ranks that share a card.  ``timeout``: seconds
-    a collective may wait for the other ranks."""
+    raises for CPU ranks or ranks that share a card.  A collective waits
+    ``TIMEOUT_S`` for the other ranks."""
     import torch.distributed as dist
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got "
@@ -98,7 +100,7 @@ def init_world(rank: int, world: int, store, backend: str,
                                world)
     dist.init_process_group(backend, store=store, rank=rank,
                             world_size=world,
-                            timeout=timedelta(seconds=timeout),
+                            timeout=timedelta(seconds=TIMEOUT_S),
                             device_id=dev if backend == "nccl" else None)
     return dev
 
@@ -138,15 +140,15 @@ def close_world() -> None:
         dist.destroy_process_group()
 
 
-def _rank_main(rank, world, fn, args, store, backend, device, threads,
-               results):
+def _rank_main(rank, world, fn, args, store, backend, device, results):
     """A rank's process: join the world, run ``fn``, report the result or
-    the traceback, leave.  A rank that dies on a signal prints its
-    Python stack first (``faulthandler``)."""
+    the traceback, leave.  CPU ranks share the host's cores, each taking
+    its part of them for its intra-op threads.  A rank that dies on a
+    signal prints its Python stack first (``faulthandler``)."""
     faulthandler.enable()
     try:
-        if threads is not None:
-            torch.set_num_threads(threads)
+        if torch.device(device).type == "cpu":
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
         init_world(rank, world, store, backend, device)
         out = fn(rank, *args)
         results.put(("ok", rank, out))
@@ -165,15 +167,13 @@ def _rank_main(rank, world, fn, args, store, backend, device, threads,
 
 def spawn(fn: Callable, world: int, *args, store: str,
           backend: str = "gloo", device: DeviceLike = "cuda",
-          timeout: float = 600.0, threads: Optional[int] = None) -> Any:
+          timeout: float = 600.0) -> Any:
     """Run ``fn(rank, *args)`` on ``world`` new processes joined by
     ``init_world`` and return rank 0's result.
 
     ``fn``, ``args`` and the results cross process boundaries pickled, so
     ``fn`` is a module-level function.  ``store``: the directory the ranks
-    meet in (one a world).  ``threads``: each rank's intra-op threads
-    (``torch.set_num_threads``), where ranks share a host's cores.  A rank
-    that raises, or dies, fails the call with a ``RuntimeError`` holding
+    meet in (one a world).  A rank that raises, or dies, fails the call with a ``RuntimeError`` holding
     its traceback, and the other ranks are ended; past ``timeout`` seconds
     every rank is ended and the call raises ``TimeoutError``."""
     import torch.multiprocessing as mp
@@ -182,7 +182,7 @@ def spawn(fn: Callable, world: int, *args, store: str,
     os.makedirs(store, exist_ok=True)
     procs = [ctx.Process(target=_rank_main,
                          args=(r, world, fn, args, store, backend, device,
-                               threads, results), daemon=True)
+                               results), daemon=True)
              for r in range(world)]
     for p in procs:
         p.start()

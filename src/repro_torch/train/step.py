@@ -16,7 +16,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.models.model_zoo import Model
-from repro_torch.models.params import cast_tree, map_tensors, place
+from repro_torch.models.params import cast_tree, map_tensors
 from repro_torch.optim.adamw import (OptConfig, adamw_update, init_opt_state,
                                      zero1_specs)
 from repro_torch.parallel.sharding import (TRAIN_RULES, P, Rules,
@@ -142,15 +142,6 @@ def init_train_state(model: Model, generator: torch.Generator,
     if compress is not None:
         state["ef_error"] = compress.init_error(params)
     return state
-
-
-def place_train_state(state, mesh, specs):
-    """The train state laid out on ``mesh`` by ``specs``
-    (``train_state_specs``): parameters TP, moments ZeRO-1, each rank
-    keeping its own shards of the state every rank built from one seed
-    (the JAX package's ``jax.device_put`` of each leaf to its
-    ``NamedSharding``)."""
-    return place(state, mesh, specs)
 
 
 def train_state_specs(model: Model, mesh, rules: Rules, compress=None):

@@ -12,7 +12,7 @@ runs it.
 
 * The train step of the reference's tiny dense config on a 2 x 4
   ``("data", "model")`` mesh, the JAX package's initial state carried
-  across and placed by ``place_train_state``, against the JAX package's
+  across and placed by ``models.params.place``, against the JAX package's
   single-device step: the loss within the reference's rtol 1e-4; the
   gradients within the port's single-device bounds of
   ``tests/test_torch_train.py`` (their norm 1e-4 relative, each leaf 1e-3
@@ -82,7 +82,7 @@ REPLAY = [{"flops": FPI, "hbm": BPI, "ici": 4e6}, {"flops": 2 * FPI},
 
 def _spawn(fn, n, *args, tmp_path, **kw):
     return world.spawn(fn, n, *args, store=str(tmp_path / "store"),
-                       device="cpu", threads=1, timeout=TIMEOUT, **kw)
+                       device="cpu", timeout=TIMEOUT, **kw)
 
 
 def _flat(tree, prefix=""):
@@ -108,7 +108,7 @@ def _train_rank(rank, state_np, batch_np):
     from repro_torch.configs.base import ModelConfig
     from repro_torch.configs.run import RunConfig
     from repro_torch.models.model_zoo import build_model
-    from repro_torch.models.params import train_state_from_numpy
+    from repro_torch.models.params import place, train_state_from_numpy
     from repro_torch.optim.adamw import OptConfig
     from repro_torch.parallel.sharding import TRAIN_RULES, make_rules
     from repro_torch.train import step as step_mod
@@ -117,7 +117,7 @@ def _train_rank(rank, state_np, batch_np):
     mesh = world.device_mesh((2, 4), ("data", "model"), "cpu")
     specs = step_mod.train_state_specs(model, mesh,
                                        make_rules(mesh, TRAIN_RULES))
-    state = step_mod.place_train_state(
+    state = place(
         train_state_from_numpy(state_np, device="cpu"), mesh, specs)
     placements = {k: str(tuple(v.placements)) for k, v in
                   (("embed", state["params"]["embed"]),
@@ -485,7 +485,7 @@ def test_a_hung_world_ends_at_its_deadline(tmp_path):
     t0 = time.monotonic()
     with pytest.raises(TimeoutError, match=r"2 of 2 ranks did not finish in 10 s"):
         world.spawn(_hanging_rank, 2, store=str(tmp_path / "store"),
-                    device="cpu", threads=1, timeout=10.0)
+                    device="cpu", timeout=10.0)
     assert time.monotonic() - t0 < 60
 
 
