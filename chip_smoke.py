@@ -370,6 +370,9 @@ MOE_TRAIN_LAYERS, MOE_TRAIN_SEQ = 2, 4096
 STATIC_DOT_TOL, STATIC_REPLAY_TOL, STATIC_TIMED_STEPS = 1e-9, 1e-6, 3
 # the examples phase: every examples/torch_*.py, each within its timeout
 EXAMPLES_WANTED, EXAMPLE_TIMEOUT_S = 9, 600
+# examples run at once: one after another they took 241 s of the script's
+# 1016 s once the jobs step was in (PERF.md §6)
+EXAMPLES_AT_ONCE = 3
 # the dry-run (src/repro_torch/launch/dryrun.py): production cells on the
 # 16 x 16 mesh (256 fake ranks) and Qwen2-72B's decode on 2 x 16 x 16
 # (512), each (arch, shape, multi-pod); a decode cell's per-device bytes
@@ -419,6 +422,24 @@ RANKS_OUTSIDE_SHARE = 1e-4
 RANKS_GRAD_TOL = 1e-4
 RANKS_DECODE_B, RANKS_DECODE_PROMPT, RANKS_DECODE_STEPS = 2, 64, 4
 RANKS_TIMEOUT_S, RANKS_PHASE_S = 600.0, 240.0
+# the jobs on a mesh of ranks, a step after the ranks phase, in its world,
+# at its model and weights (ranks_fan_in): make_job on (1, 2) trains
+# JOBS_STEPS float32 steps of JOBS_BATCH x JOBS_SEQ tokens, checkpoints
+# (18.7 GB, sharded: gathered, written by rank 0) after step 2 and fails
+# before step 2, so that it restores onto (1, 2) and runs step 2.  Not a
+# step 3: it would end at step 4 and save a second checkpoint, two on the
+# disk at once, and with one kept collect the one the next job resumes.
+# A job on (2, 1) then resumes that checkpoint (elastic restore: each
+# rank's shard of every leaf equal to its slice of the file, whose sha1
+# the restore checks against the manifest) and runs step 2, its loss
+# within RANKS_LOSS_RTOL of the first job's; Engine on (1, 2) serves the
+# ranks phase's prompts for RANKS_DECODE_STEPS + 1 tokens each, the
+# ranks phase's one-rank tokens exactly.  The step within JOBS_STEP_S (it
+# took 171-184 s on the card, PERF.md §6: gloo moves the checkpoint's
+# gather and the (2, 1) step's gradients through the host)
+JOBS_STEPS, JOBS_FAIL_AT, JOBS_CKPT_EVERY = 3, 2, 2
+JOBS_BATCH, JOBS_SEQ = 2, 512
+JOBS_STEP_S = 240.0
 
 
 def emit(phase: str, **fields) -> None:
@@ -561,14 +582,19 @@ def device_time(torch, fn):
     return wall, sum(k[1] for k in kernels), [list(k) for k in kernels]
 
 
-def phase_device(torch):
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
     if smi.returncode != 0 or not smi.stdout.strip():
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    card = smi.stdout.strip().splitlines()[0]
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_device(torch):
+    card = card_line()
     print(card, flush=True)
     emit("device", nvidia_smi=card, name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
@@ -954,6 +980,16 @@ def phase_segment(torch, np, rng, build_info, ring_slots):
     flops = cref.flops(tile, ci)
     nbytes = mref.bytes_moved(block, mi) + 3 * tile * tile * 4
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BPS
+    # the sample barrier orders the rows (a row's legs may overlap), so the
+    # least time is each row's larger leg, summed over the rows
+    by = {"operations": 0.0, "bytes": 0.0}
+    for t in tables:
+        for row_ci, row_mi, _ in t.tolist():
+            row = {"operations": cref.flops(tile, row_ci) / PEAK_FP32_FLOPS,
+                   "bytes": mref.bytes_moved(block, row_mi) / PEAK_HBM_BPS}
+            leg = max(row, key=row.get)
+            by[leg] += row[leg]
+    t_rows = by["operations"] + by["bytes"]
     resources = {k: v["ptxas"] for k, v in build_info.items()
                  if "segment_kernel" in k}
     row = {
@@ -964,10 +1000,16 @@ def phase_segment(torch, np, rng, build_info, ring_slots):
         "replaces": "src/repro/core/schedule.py:336 (SegmentRunner._fn, a "
                     "jitted lax.scan; not a Pallas kernel)",
         "max_abs_err": max(seg_err, err), "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes) * 1e3,
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_ms": t_rows * 1e3,
+        "bound_by": max(by, key=by.get),
         "bound_rate": "float32 FMA and HBM, datasheet",
+        "bound_note": "sample-ordered: the sum over the table's rows of "
+                      "the row's larger leg (its burns at the fp32 peak or "
+                      "its passes at HBM's rate); bound_by names the leg "
+                      "that holds most of it",
+        "bound_rows_ms": {k: v * 1e3 for k, v in by.items()},
         "bound_legs_in_sequence_ms": (t_ops + t_bytes) * 1e3,
+        "bound_whole_table_ms": max(t_ops, t_bytes) * 1e3,
         "library_ms": None,
         "library": "none: no one PyTorch call walks an iteration table",
         "table": [t.tolist() for t in tables], "compute_iters": ci,
@@ -2671,26 +2713,37 @@ def phase_dryrun(torch, dev=None) -> None:
 
 def phase_examples(torch) -> None:
     """Each ``examples/torch_*.py`` on the card (its default device) as a
-    subprocess, in a scratch directory for the files it writes: exit 0,
-    and its wall time."""
+    subprocess, EXAMPLES_AT_ONCE at a time, each in a scratch directory of
+    its own for the files it writes: exit 0, and its wall time (beside the
+    others running)."""
+    from concurrent.futures import ThreadPoolExecutor
     names = sorted(f for f in os.listdir(os.path.join(ROOT, "examples"))
                    if f.startswith("torch_") and f.endswith(".py"))
     walls = {}
+    t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as d:
-        for name in names:
+        def run(name):
+            cwd = os.path.join(d, name[:-3])
+            os.makedirs(cwd)
             t0 = time.perf_counter()
             out = subprocess.run(
                 [sys.executable, os.path.join(ROOT, "examples", name)],
-                cwd=d, env=src_env(), capture_output=True, text=True,
+                cwd=cwd, env=src_env(), capture_output=True, text=True,
                 timeout=EXAMPLE_TIMEOUT_S)
-            walls[name] = time.perf_counter() - t0
-            last = out.stdout.strip().splitlines()[-1:]
-            emit("examples", example=name, rc=out.returncode,
-                 wall_s=walls[name], last_line=last)
-            if out.returncode != 0:
-                fail(f"examples/{name} exited {out.returncode}: "
-                     f"{out.stderr[-3000:]}")
-    emit("examples", step="all", n=len(names), wall_s=sum(walls.values()))
+            return out, time.perf_counter() - t0
+
+        with ThreadPoolExecutor(EXAMPLES_AT_ONCE) as pool:
+            runs = dict(zip(names, pool.map(run, names)))
+    for name, (out, walls[name]) in runs.items():
+        last = out.stdout.strip().splitlines()[-1:]
+        emit("examples", example=name, rc=out.returncode,
+             wall_s=walls[name], last_line=last)
+        if out.returncode != 0:
+            fail(f"examples/{name} exited {out.returncode}: "
+                 f"{out.stderr[-3000:]}")
+    emit("examples", step="all", n=len(names), at_once=EXAMPLES_AT_ONCE,
+         wall_s=time.perf_counter() - t_phase,
+         sum_wall_s=sum(walls.values()))
     if len(names) != EXAMPLES_WANTED:
         fail(f"{len(names)} torch examples, want {EXAMPLES_WANTED}")
 
@@ -3790,7 +3843,7 @@ def split_launches(table) -> int:
     return launches + work
 
 
-def phase_ranks(torch, np, calib, rows, dev=None) -> None:
+def phase_ranks(torch, np, calib, rows, dev=None) -> list:
     """Shards on distinct ranks: RANKS_WORLD processes, the ranks of one
     process group (``launch.world.spawn``): NCCL where each rank has a
     card of its own, else gloo, the ranks sharing the card.  (a) Qwen2-7B's widths cut to RANKS_LAYERS layers: one
@@ -3800,12 +3853,15 @@ def phase_ranks(torch, np, calib, rows, dev=None) -> None:
     their elements outside the reference's atol / rtol (at most
     RANKS_OUTSIDE_SHARE); (b) the same widths' prefill and decode steps on
     (1, 2) under the decode rules: tokens identical to one rank's; (c) the
-    collective cell's profile replayed fused on a (2,) mesh of distinct
-    ranks: every rank's consumed equal to the others' and to the shared
+    collective cell's profile, at a tenth of its wire bytes (the
+    per-sample run's cut: gloo moved the whole wire through the host in
+    41 s), replayed fused on a (2,) mesh of distinct ranks: every rank's
+    consumed equal to the others' and to the shared
     mesh's replay, its segment launches' device counts the table's, its
     wire steps and bytes the quantized schedule's.  Each step's ms and
     each rank's peak memory are printed; a failed rank fails the script.
-    Adds the ranks' segment launches to the kernels line."""
+    Adds the ranks' segment launches to the kernels line; returns (b)'s
+    tokens on one rank."""
     from repro_torch.core import Emulator
     from repro_torch.launch import world
     from repro_torch.launch.mesh import make_mesh
@@ -3864,9 +3920,10 @@ def phase_ranks(torch, np, calib, rows, dev=None) -> None:
     if any(r["tokens"] != got["one_rank_tokens"] for r in got["ranks"]):
         fail(f"ranks decode: tokens {[r['tokens'] for r in got['ranks']]} "
              f"on the mesh, {got['one_rank_tokens']} on one rank")
+    one_rank_tokens = got["one_rank_tokens"]
 
     # (c) the collective cell on distinct ranks, against the shared mesh
-    prof = collective_profile(QWEN2_7B_TRAIN_WIRE)
+    prof = collective_profile(COLLECTIVE_CUTS["per_sample_ici_per_step"])
     em = Emulator(calib=calib, backend="cuda",
                   mesh=make_mesh((2,), ("data",), dev), device=dev)
     sched = em.compile(prof)
@@ -3910,6 +3967,216 @@ def phase_ranks(torch, np, calib, rows, dev=None) -> None:
     emit("ranks", step="phase", seconds=phase_s, limit_s=RANKS_PHASE_S)
     if phase_s > RANKS_PHASE_S:
         fail(f"ranks: the phase took {phase_s:.1f} s")
+    return one_rank_tokens
+
+
+def jobs_rank(rank, dev_name, cfg, ckpt_dir):
+    """A rank of the jobs step (``phase_jobs``): the train job on (1, 2)
+    with its checkpoint, failure and restore, the job on (2, 1) that
+    resumes the checkpoint, then the engine on (1, 2).  Returns, on rank
+    0, the losses, the report, the checkpoint's bytes, the restored
+    leaves' hashes against the manifest, and from every rank its
+    checkpoint seconds, step times, tokens and peak."""
+    from concurrent.futures import ThreadPoolExecutor
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint.ckpt import tree_flatten_named
+    from repro_torch.configs.run import RunConfig
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch import world
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.parallel.sharding import local_shard
+    from repro_torch.runtime.supervisor import FailurePlan, SupervisorConfig
+    from repro_torch.serve.engine import Engine, Request
+    from repro_torch.train import loop
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(dev_name)
+    init = loop.init_train_state
+
+    def fan_in_init(model, gen, **kw):        # the ranks phase's weights
+        state = init(model, gen, **kw)
+        ranks_fan_in(torch, state["params"], cfg)
+        return state
+    loop.init_train_state = fan_in_init
+    spent = {}
+
+    def timed(obj, attr, key):
+        fn = getattr(obj, attr)
+
+        def run_(*a, **kw):
+            t = time.perf_counter()
+            out_ = fn(*a, **kw)
+            spent.setdefault(key, []).append(time.perf_counter() - t)
+            return out_
+        setattr(obj, attr, run_)
+
+    def job(shape, every):
+        return loop.make_job(
+            cfg, RunConfig(**RANKS_TRAIN_RUN), opt=OptConfig(**RANKS_OPT),
+            data_cfg=DataConfig(vocab_size=cfg.vocab_size, seq_len=JOBS_SEQ,
+                                global_batch=JOBS_BATCH),
+            ckpt_dir=ckpt_dir,
+            mesh=world.device_mesh(shape, ("data", "model"), dev),
+            sup_cfg=SupervisorConfig(ckpt_every=every, keep=1), device=dev)
+
+    # the job on (1, 2): steps 0-1, the checkpoint, the failure, step 2
+    _peak(torch, dev, reset=True)
+    first = job((1, 2), JOBS_CKPT_EVERY)
+    timed(first.ckpt, "_snapshot", "gather_s")
+    timed(first.ckpt, "_write", "write_s")
+    timed(first.ckpt, "restore", "restore_12_s")
+    out = loop.train(first, JOBS_STEPS, resume=False,
+                     failure_plan=FailurePlan({JOBS_FAIL_AT: "node_lost"}))
+    rep = out["report"]
+    res = {"losses": out["losses"], "restarts": rep.restarts,
+           "restored_from": rep.restored_from, "failures": rep.failures}
+    mine = {"step_s_12": rep.step_times}
+    del out, first
+    _free(torch, dev)
+    step_dir = os.path.join(ckpt_dir, f"step_{JOBS_FAIL_AT:08d}")
+    with open(os.path.join(step_dir, "manifest.json")) as f:
+        manifest = json.load(f)["leaves"]
+    res["ckpt_bytes"] = sum(
+        os.path.getsize(os.path.join(step_dir, m["file"]))
+        for m in manifest.values())
+
+    # the job on (2, 1) resumes that checkpoint and runs step 2; each rank
+    # holds each leaf's shard it restored to the same slice of the file,
+    # whose bytes the restore hashed to the manifest (verify=True): hashing
+    # the whole leaves would gather the state again, as long as the save's
+    # gather over gloo
+    second = job((2, 1), 1000)
+    restore = second.ckpt.restore
+    misses = []
+
+    def restore_and_check(*a, **kw):
+        t = time.perf_counter()
+        state, extra = restore(*a, **kw)
+        spent["restore_21_s"] = [time.perf_counter() - t]
+        t = time.perf_counter()
+
+        def same(item):
+            name, x = item
+            arr = np.load(os.path.join(step_dir, manifest[name]["file"]),
+                          mmap_mode="r")
+            shard, at = local_shard(x)
+            part = arr[tuple(slice(o, o + n)
+                             for o, n in zip(at, shard.shape))]
+            return name, torch.equal(shard.detach().cpu(),
+                                     torch.from_numpy(np.array(part)))
+        with ThreadPoolExecutor(4) as pool:
+            misses.extend(name for name, ok in pool.map(
+                same, tree_flatten_named(state).items()) if not ok)
+        spent["check_s"] = [time.perf_counter() - t]
+        return state, extra
+    second.ckpt.restore = restore_and_check
+    out = loop.train(second, 1, resume=True)
+    res["loss_21"] = out["losses"]
+    mine.update(step_s_21=second.supervisor.report.step_times,
+                misses=misses, checked=len(manifest))
+    del out, second
+    loop.init_train_state = init
+    _free(torch, dev)
+
+    # the engine on (1, 2): the ranks phase's prompts and weights
+    model = build_model(cfg, RunConfig(**RANKS_SERVE_RUN))
+    params = model.init(torch.Generator(dev).manual_seed(0), dev)
+    ranks_fan_in(torch, params, cfg)
+    toks = torch.randint(0, cfg.vocab_size,
+                         (RANKS_DECODE_B, RANKS_DECODE_PROMPT),
+                         generator=torch.Generator(dev).manual_seed(2),
+                         device=dev, dtype=torch.int32)
+    t = time.perf_counter()
+    engine = Engine(model, params, batch_slots=RANKS_DECODE_B,
+                    max_len=RANKS_DECODE_PROMPT + RANKS_DECODE_STEPS + 1,
+                    mesh=world.device_mesh((1, 2), ("data", "model"), dev),
+                    device=dev)
+    del params
+    _free(torch, dev)
+    reqs = [Request(prompt=p, max_new_tokens=RANKS_DECODE_STEPS + 1)
+            for p in toks.cpu().tolist()]
+    t_serve = time.perf_counter()
+    engine.serve(reqs)
+    _sync(torch, dev)
+    mine.update(place_s=t_serve - t, serve_s=time.perf_counter() - t_serve,
+                tokens=[r.out_tokens for r in reqs], peak=_peak(torch, dev),
+                losses=res["losses"], loss_21=res["loss_21"], **spent)
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    res["ranks"] = every
+    return res
+
+
+def phase_jobs(torch, np, one_rank_tokens, dev=None) -> None:
+    """The jobs on a mesh of ranks, after the ranks phase and in its world
+    (RANKS_WORLD ranks, its backend, model and weights), through
+    ``jobs_rank``: sharded checkpoints with elastic restore,
+    ``make_job(mesh=...)`` and ``Engine(mesh=...)``, the engine's tokens
+    against the ranks phase's ``one_rank_tokens`` (a list a step).  Fails
+    on a miss, a failed rank or past JOBS_STEP_S."""
+    from repro_torch.launch import world
+    dev = dev or torch.device("cuda")
+    t_phase = time.perf_counter()
+    own = dev.type == "cuda" and not world.shares_a_card(RANKS_WORLD)
+    backend = "nccl" if own else "gloo"
+    cfg = ranks_qwen2_cut()
+    _free(torch, dev)
+    with tempfile.TemporaryDirectory(prefix="jobs") as d:
+        got = world.spawn(jobs_rank, RANKS_WORLD, dev.type, cfg,
+                          os.path.join(d, "ckpt"),
+                          store=os.path.join(d, "store"), backend=backend,
+                          device=dev.type, timeout=RANKS_TIMEOUT_S)
+    card = card_line() if dev.type == "cuda" else "cpu"
+    ranks = got.pop("ranks")
+    keys = ("gather_s", "write_s", "restore_12_s", "restore_21_s",
+            "check_s", "step_s_12", "step_s_21", "place_s", "serve_s")
+    losses = got["losses"]
+    emit("jobs", step="train", card=card, backend=backend, model=cfg.name,
+         layers=cfg.num_layers, batch=JOBS_BATCH, seq=JOBS_SEQ,
+         ckpt_gb=got["ckpt_bytes"] / 1e9, losses=losses,
+         restarts=got["restarts"], restored_from=got["restored_from"],
+         failures=got["failures"],
+         per_rank=[{k: r.get(k) for k in keys} for r in ranks],
+         peak_gb=[r["peak"] / 1e9 for r in ranks])
+    if got["restarts"] != 1 or got["restored_from"] != [JOBS_FAIL_AT]:
+        fail(f"jobs: {got['restarts']} restarts from "
+             f"{got['restored_from']}, want one from step {JOBS_FAIL_AT}")
+    if len(losses) != JOBS_STEPS or not all(map(math.isfinite, losses)) \
+            or any(r["losses"] != losses for r in ranks):
+        fail(f"jobs: losses {[r['losses'] for r in ranks]}")
+    if [len(r.get("write_s", [])) for r in ranks] != \
+            [1] + [0] * (len(ranks) - 1) or \
+            any(len(r.get("restore_12_s", [])) != 1 for r in ranks):
+        fail("jobs: rank 0 alone writes, once, and every rank restores "
+             f"once: {[{k: r.get(k) for k in keys} for r in ranks]}")
+    rel = abs(got["loss_21"][0] - losses[-1]) / abs(losses[-1]) \
+        if len(got["loss_21"]) == 1 else math.inf
+    emit("jobs", step="elastic", card=card,
+         checked=[r["checked"] for r in ranks],
+         misses=[r["misses"] for r in ranks], loss_21=got["loss_21"],
+         loss_12=losses[-1], loss_rel=rel, tol=RANKS_LOSS_RTOL)
+    if any(r["misses"] or not r["checked"] for r in ranks):
+        fail(f"jobs: restored leaves off the manifest: "
+             f"{[r['misses'] for r in ranks]}")
+    if not rel <= RANKS_LOSS_RTOL or any(r["loss_21"] != got["loss_21"]
+                                         for r in ranks):
+        fail(f"jobs: step {JOBS_FAIL_AT} on (2, 1) lost "
+             f"{[r['loss_21'] for r in ranks]}, on (1, 2) {losses[-1]}")
+    want = [[step[i] for step in one_rank_tokens]
+            for i in range(RANKS_DECODE_B)]
+    emit("jobs", step="serve", card=card, tokens=ranks[0]["tokens"],
+         one_rank_tokens=want)
+    if any(r["tokens"] != want for r in ranks):
+        fail(f"jobs: the engine's tokens {[r['tokens'] for r in ranks]}, "
+             f"one rank's {want}")
+    phase_s = time.perf_counter() - t_phase
+    emit("jobs", step="phase", card=card, seconds=phase_s,
+         limit_s=JOBS_STEP_S)
+    if phase_s > JOBS_STEP_S:
+        fail(f"jobs: the step took {phase_s:.1f} s")
 
 
 def ranks_qwen2_cut():
@@ -3981,7 +4248,8 @@ def main() -> None:
     host, served = phase_serve(torch, np, rows)
     phase_static(torch, np, calib, served)
     phase_dryrun(torch)
-    phase_ranks(torch, np, calib, rows)
+    one_rank_tokens = phase_ranks(torch, np, calib, rows)
+    phase_jobs(torch, np, one_rank_tokens)
     phase_train(torch, np, calib)
     phase_families(torch, np, rows, calib, host)
     phase_examples(torch)

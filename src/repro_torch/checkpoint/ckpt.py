@@ -20,12 +20,24 @@ Layout:  <root>/step_<N>/
   two-byte words (a ``V2`` array, as numpy writes the JAX package's
   ml_dtypes bf16) under the manifest dtype ``"bfloat16"``, and read back
   as ``torch.bfloat16``.
+* Sharded states: tensors are stored UNSHARDED, the JAX package's format.
+  In a process group every rank snapshots a DTensor leaf's whole value
+  (``full_tensor``, a collective: every rank takes the leaves in one
+  order) and rank 0 alone keeps it, writes, commits and collects old
+  steps.  ``save``, ``save_async`` + ``wait`` end with every rank
+  agreeing that the step is committed, and a write error on rank 0 is
+  raised on every rank.  The ranks share the checkpoint's directory.
+* Elastic restore: ``restore(shardings=...)`` reads each whole leaf on
+  every rank and keeps the rank's own shard on the mesh of its
+  ``NamedSharding``, which may differ from the mesh at save time, with no
+  collective (``parallel.sharding.distribute``).
 """
 from __future__ import annotations
 
 import hashlib
 import json
 import os
+import pickle
 import shutil
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -36,6 +48,7 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.obs import clock as obs_clock
+from repro_torch.parallel.sharding import distribute, whole
 
 MANIFEST = "manifest.json"
 COMMIT = "COMMIT"
@@ -88,6 +101,34 @@ def _sha1(arr: np.ndarray) -> str:
     return hashlib.sha1(words).hexdigest()[:12]
 
 
+def _in_group() -> bool:
+    import torch.distributed as dist
+    return dist.is_available() and dist.is_initialized()
+
+
+def _writes() -> bool:
+    """Whether this process writes checkpoints: rank 0 of the default
+    process group, or a process outside one."""
+    import torch.distributed as dist
+    return not _in_group() or dist.get_rank() == 0
+
+
+def _agree(err: Optional[BaseException]) -> Optional[BaseException]:
+    """Rank 0's write error (or None) on every rank of the default group:
+    the ranks leave together, and none waits in a collective for a rank
+    that raised."""
+    import torch.distributed as dist
+    msg = [None]
+    if dist.get_rank() == 0 and err is not None:
+        try:
+            pickle.dumps(err)
+            msg[0] = err
+        except Exception:  # noqa: BLE001 — sent as its message instead
+            msg[0] = RuntimeError(f"{type(err).__name__}: {err}")
+    dist.broadcast_object_list(msg, src=0)
+    return err if dist.get_rank() == 0 else msg[0]
+
+
 def _from_host(arr: np.ndarray, dtype: str) -> torch.Tensor:
     """A leaf read from disk as a tensor on the host."""
     if dtype == BF16:
@@ -108,17 +149,28 @@ class CheckpointManager:
         os.makedirs(root, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._pending = False      # a save that wait() has not closed
 
     # -- save -----------------------------------------------------------------
 
     def save(self, step: int, state, extra: Optional[Dict] = None):
         self.wait()
-        self._write(step, self._snapshot(state), extra or {})
+        host = self._snapshot(state)
+        self._pending = True
+        if _writes():
+            try:
+                self._write(step, host, extra or {})
+            except BaseException as e:  # noqa: BLE001 — re-raised by wait()
+                self._error = e
+        self.wait()
 
     def save_async(self, step: int, state, extra: Optional[Dict] = None):
         """Snapshot synchronously (device->host), write on a worker thread."""
         self.wait()
         host = self._snapshot(state)
+        self._pending = True
+        if not _writes():
+            return
 
         def work():
             try:
@@ -131,15 +183,29 @@ class CheckpointManager:
 
     @staticmethod
     def _snapshot(state) -> Dict[str, np.ndarray]:
-        return {name: _to_host(x)
-                for name, x in tree_flatten_named(state).items()}
+        """Host copies of the leaves, on the writing rank; every rank
+        gathers each DTensor leaf, in ``tree_flatten_named``'s order, and
+        the others drop it at once."""
+        keep = _writes()
+        out = {}
+        for name, x in tree_flatten_named(state).items():
+            x = whole(x)
+            if keep:
+                out[name] = _to_host(x)
+            del x
+        return out
 
     def wait(self):
+        """Wait for the last save; in a process group, every rank leaves
+        once rank 0 committed it, or raises rank 0's write error."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
-        if self._error is not None:
-            err, self._error = self._error, None
+        err, self._error = self._error, None
+        if self._pending and _in_group():
+            err = _agree(err)
+        self._pending = False
+        if err is not None:
             raise err
 
     def _write(self, step: int, leaves: Dict[str, np.ndarray], extra: Dict):
@@ -188,11 +254,16 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: Optional[int] = None, *,
+    def restore(self, step: Optional[int] = None, *, shardings=None,
                 device: DeviceLike = None,
                 verify: bool = True) -> Tuple[Any, Dict]:
-        """Returns (state_tree, manifest_extra), every leaf on ``device``
-        (the manager's device when None)."""
+        """Returns (state_tree, manifest_extra).
+
+        ``shardings``: a tree of ``parallel.sharding.NamedSharding``
+        matching the state's: a leaf that has one is laid out on its mesh,
+        which may differ from the mesh at save time (elastic restore),
+        each rank keeping its own shard.  Every other leaf goes to
+        ``device`` (the manager's device when None)."""
         dev = resolve(device if device is not None else self.device)
         step = step if step is not None else self.latest_step()
         if step is None:
@@ -200,6 +271,8 @@ class CheckpointManager:
         d = os.path.join(self.root, f"step_{step:08d}")
         with open(os.path.join(d, MANIFEST)) as f:
             manifest = json.load(f)
+        named = tree_flatten_named(shardings) if shardings is not None \
+            else {}
 
         def leaf(item):
             name, meta = item
@@ -209,10 +282,13 @@ class CheckpointManager:
                 if h != meta["sha1"]:
                     raise IOError(f"checkpoint corruption in {name}: "
                                   f"{h} != {meta['sha1']}")
-            return name, _from_host(arr, meta["dtype"]).to(dev)
+            return name, _from_host(arr, meta["dtype"])
 
         tree: Dict = {}
         with ThreadPoolExecutor(_IO_THREADS) as pool:
             for name, t in pool.map(leaf, manifest["leaves"].items()):
+                sh = named.get(name)
+                t = t.to(dev) if sh is None else \
+                    distribute(t, sh.mesh, sh.spec)
                 _set_path(tree, tuple(name.split("/")), t)
         return tree, manifest.get("extra", {})

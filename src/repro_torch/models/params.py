@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve
-from repro_torch.parallel.sharding import abstract_tensor, spec_placements
+from repro_torch.parallel.sharding import abstract_tensor, distribute
 
 
 @dataclass(frozen=True)
@@ -66,23 +66,10 @@ def place(tree, mesh, specs):
     """``tree``'s tensors laid out on ``mesh`` by the PartitionSpecs of
     ``specs`` (a tree of the same keys), as DTensors: every rank holds the
     same whole tensors (made from one seed) and keeps its own shard of
-    each, with no collective (``jax.device_put`` of each leaf to its
-    ``NamedSharding``).  A shard is a copy where it would be a view of the
-    whole tensor, so that dropping ``tree`` frees the whole."""
-    from torch.distributed.tensor import DTensor, distribute_tensor
-
-    def one(x, spec):
-        placements = spec_placements(spec, mesh)
-        d = distribute_tensor(x, mesh, placements, src_data_rank=None)
-        shard = d.to_local()
-        if shard.untyped_storage().nbytes() == \
-                shard.numel() * shard.element_size() or \
-                all(p.is_replicate() for p in placements):
-            return d
-        return DTensor.from_local(shard.clone(), mesh, placements,
-                                  run_check=False, shape=d.shape,
-                                  stride=d.stride())
-    return map_tensors(tree, one, specs)
+    each, with no collective (``sharding.distribute`` of each leaf, the
+    counterpart of ``jax.device_put`` to its ``NamedSharding``)."""
+    return map_tensors(tree, lambda x, spec: distribute(x, mesh, spec),
+                       specs)
 
 
 def _materialize(gen: torch.Generator, pd: PDef, dtype, device):

@@ -286,6 +286,31 @@ def local(x):
     return x.to_local() if is_dtensor(x) else x
 
 
+def whole(x):
+    """The whole value of a DTensor on every rank (a collective where it
+    is sharded); any other tensor itself."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+def distribute(x, mesh, spec):
+    """``x``, the whole tensor on every rank, laid out on ``mesh`` by
+    ``spec`` as a DTensor: each rank keeps its own shard, with no
+    collective (``jax.device_put`` to a ``NamedSharding``).  A shard is a
+    copy where it would be a view of ``x``, so that dropping ``x`` frees
+    the whole."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    placements = spec_placements(spec, mesh)
+    d = distribute_tensor(x, mesh, placements, src_data_rank=None)
+    shard = d.to_local()
+    if shard.untyped_storage().nbytes() == \
+            shard.numel() * shard.element_size() or \
+            all(p.is_replicate() for p in placements):
+        return d
+    return DTensor.from_local(shard.clone(), mesh, placements,
+                              run_check=False, shape=d.shape,
+                              stride=d.stride())
+
+
 def local_shard(x):
     """(local shard, global index of its first element) of a DTensor; a
     plain tensor is its own shard, at index 0 in every dim."""

@@ -5,6 +5,11 @@ sampling, per-slot stop lengths.  Prompts of a wave are left-padded to the
 longest with token 0 and no padding mask: the model attends to the pad
 tokens, as the JAX package's does.  The Synapse ``RuntimeProfiler`` can
 profile ``serve`` like any callable.
+
+On a mesh (a ``DeviceMesh`` over the ranks of a process group, each rank
+serving the same requests), plain parameters are laid out by the decode
+rules' specs, the steps run on DTensors, and each token is read whole on
+every rank.
 """
 from __future__ import annotations
 
@@ -16,6 +21,8 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.models.model_zoo import Model
+from repro_torch.models.params import place
+from repro_torch.parallel.sharding import DECODE_RULES, make_rules, whole
 from repro_torch.serve.step import make_decode_step, make_prefill_step
 
 
@@ -29,20 +36,28 @@ class Request:
 
 class Engine:
     def __init__(self, model: Model, params, *, batch_slots: int = 4,
-                 max_len: int = 256, device: DeviceLike = None):
-        """``params`` live on ``device`` (``"cuda"`` unless named)."""
+                 max_len: int = 256, mesh=None, device: DeviceLike = None):
+        """``params`` live on ``device`` (``"cuda"`` unless named; on a
+        ``mesh``, the rank's device, whole: the engine lays them out)."""
         self.device = resolve(device)
         self.model = model
+        self.mesh = mesh
+        if mesh is not None:
+            params = place(params, mesh, model.param_specs(
+                make_rules(mesh, DECODE_RULES)))
         self.params = params
         self.B = batch_slots
         self.max_len = max_len
-        self.prefill = make_prefill_step(model, max_len)
-        self.decode = make_decode_step(model)
+        self.prefill = make_prefill_step(model, max_len, mesh=mesh)
+        self.decode = make_decode_step(model, mesh=mesh)
 
     def serve(self, requests: List[Request]) -> List[Request]:
         """Static batching: pad the wave to batch_slots, prefill, decode to
         the longest max_new_tokens, per-request early stop bookkeeping."""
-        with torch.inference_mode():
+        # on a mesh no_grad, not inference_mode: DTensor's views set the
+        # version counters that inference tensors lack
+        with torch.inference_mode() if self.mesh is None else \
+                torch.no_grad():
             for wave_start in range(0, len(requests), self.B):
                 wave = requests[wave_start:wave_start + self.B]
                 self._serve_wave(wave)
@@ -57,12 +72,12 @@ class Engine:
         tok, cache = self.prefill(
             self.params, {"tokens": torch.from_numpy(toks).to(self.device)})
         steps = max(r.max_new_tokens for r in wave)
-        t = tok.cpu().numpy()
+        t = whole(tok).cpu().numpy()
         for i, r in enumerate(wave):
             r.out_tokens.append(int(t[i, 0]))
         for _ in range(steps - 1):
             tok, cache = self.decode(self.params, tok, cache)
-            t = tok.cpu().numpy()
+            t = whole(tok).cpu().numpy()
             for i, r in enumerate(wave):
                 if not r.done and len(r.out_tokens) < r.max_new_tokens:
                     r.out_tokens.append(int(t[i, 0]))
