@@ -7,9 +7,10 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
 
   device     the card (``nvidia-smi`` name and power limit), torch and CUDA
   build      the kernel library's build seconds and, for each kernel
-             symbol, its ptxas register and spill lines and the HGMMA
-             (tensor-core) instructions in its SASS; fails if the bf16
-             flash kernel has none
+             symbol, its ptxas register and spill lines and the HGMMA and
+             HMMA (tensor-core) instructions in its SASS; fails if the
+             bf16 flash kernel has no HGMMA, or if the float32 one has any
+             HGMMA or HMMA (TF32 would be HMMA) or spills
   kernels    each kernel against its plain PyTorch version on the card, at
              several shapes, with its device time, its plain version's, a
              PyTorch library call's (each a CUDA graph's replay) and the
@@ -20,7 +21,9 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
              segment kernel at tiles 64, 128 and 256 over tables with zero,
              compute-only and memory-only rows, then at the main path's
              table; flash attention over the JAX package's test sweep,
-             Gemma2's head dim and the serving shape
+             Gemma2's head dim and the serving shape, where each dtype's
+             kernel is timed (bf16 beside scaled_dot_product_attention,
+             float32 beside its memory-efficient backend)
   main_path  the emulator end to end: a Qwen2-7B-sized ``serving_traffic``
              profile is stored, reloaded, and emulated with the fused
              ``"torch"`` backend, the per-sample ``"cuda"`` backend (a burn
@@ -90,7 +93,8 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
              (the CLI, like the JAX package's, on its default)
   serve      the dense zoo's serving path: Qwen2-7B's widths cut to 2
              layers in float32, the flash kernel against dense attention
-             (final hidden states, greedy tokens); then the full model in
+             (final hidden states, greedy tokens; the float32 kernel's
+             launches counted, at least one); then the full model in
              bf16 (weights made on the card from a seed) serving 4
              requests under the ``RuntimeProfiler`` (prefill and decode
              times, tokens/s, peak memory, flash launches = layers x
@@ -126,7 +130,9 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
              Hymba-1.5B (prompts past its 2048-token window) and
              SeamlessM4T-medium (encoder-decoder).  Each: a float32 depth
              cut, the flash kernel against dense attention (final hidden
-             states within 1e-4, identical greedy tokens); then bf16
+             states within 1e-4, identical greedy tokens; the encoder-
+             decoder at flash's two uses, its end-to-end gap printed
+             beside the dense path's float32-against-float64 gap); then bf16
              weights made on the card from a seed, its traffic under the
              ``RuntimeProfiler`` (prefill and decode times, tokens/s, peak
              memory, the MoE drop fraction, flash launches = attention
@@ -194,8 +200,10 @@ L2_BYTES = 50e6
 
 BURN_TOL = 1e-5            # atol and rtol: exact float32 on both sides
 BF16_RTOL = 1e-2           # the JAX package's own bf16 stream tolerance
-# the bf16 flash kernel of csrc/flash_attention_sm90.cu, in mangled symbols
+# the bf16 flash kernel of csrc/flash_attention_sm90.cu and the float32 one
+# of csrc/flash_attention.cu, in mangled symbols
 BF16_FLASH_SYMBOL = "fa_sm90"
+F32_FLASH_SYMBOL = "fa_simt_f32"
 # flash attention, atol and rtol: the JAX package's own (tests/test_kernels.py)
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # final hidden states of the depth-cut model, "cuda" against "full" in
@@ -615,8 +623,10 @@ def kernel_resources(log_text: str) -> dict:
     return out
 
 
-def sass_hgmma_counts(library) -> dict:
-    """HGMMA instructions in each kernel's SASS (``cuobjdump -sass``)."""
+def sass_mma_counts(library) -> dict:
+    """Each kernel's tensor-core instructions in its SASS (``cuobjdump
+    -sass``): {symbol: {"HGMMA": n (wgmma), "HMMA": n (mma.sync, TF32
+    included)}}."""
     from repro_torch.kernels import build
     tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     res = subprocess.run([tool, "-sass", str(library)], capture_output=True,
@@ -628,9 +638,10 @@ def sass_hgmma_counts(library) -> dict:
         m = re.match(r"\s*Function : (\S+)", ln)
         if m:
             name = m.group(1)
-            counts[name] = 0
-        elif name and "HGMMA" in ln:
-            counts[name] += 1
+            counts[name] = {"HGMMA": 0, "HMMA": 0}
+        elif name:
+            for op in re.findall(r"\b(HGMMA|HMMA)\b", ln):
+                counts[name][op] += 1
     return counts
 
 
@@ -643,19 +654,33 @@ def phase_build():
     log = build.BUILD_DIR / build.LOG_NAME
     text = log.read_text() if log.exists() else ""
     resources = kernel_resources(text)
-    hgmma = sass_hgmma_counts(build.library_path())
-    kernels = {name: {"ptxas": resources.get(name, []), "hgmma": n}
-               for name, n in sorted(hgmma.items())}
+    mma = sass_mma_counts(build.library_path())
+    kernels = {name: {"ptxas": resources.get(name, []),
+                      "hgmma": n["HGMMA"], "hmma": n["HMMA"]}
+               for name, n in sorted(mma.items())}
     emit("build", seconds=seconds, built=not existed,
          library=os.path.relpath(build.library_path(), ROOT),
          kernels=kernels, notes=[ln.strip() for ln in text.splitlines()
                                  if re.search(r"(?i)warning|\(C\d{4}\)", ln)])
     # the bf16 flash kernel's template instances must run on the tensor
     # cores
-    tensor_core = {k: n for k, n in hgmma.items() if BF16_FLASH_SYMBOL in k}
+    tensor_core = {k: n["HGMMA"] for k, n in mma.items()
+                   if BF16_FLASH_SYMBOL in k}
     if not tensor_core or 0 in tensor_core.values():
         fail(f"the bf16 flash kernel has no HGMMA instruction: "
              f"{tensor_core or 'no symbol ' + BF16_FLASH_SYMBOL}")
+    # the float32 one must stay exact float32 on the SIMT pipes: no
+    # tensor-core instruction (TF32 would be HMMA), and no spill
+    f32 = {k: {**n, **ptxas_numbers(resources.get(k, []))}
+           for k, n in mma.items() if F32_FLASH_SYMBOL in k}
+    emit("build", kernel="flash_attention_f32", symbols=f32)
+    if not f32:
+        fail(f"no float32 flash symbol {F32_FLASH_SYMBOL} in the library")
+    for k, n in f32.items():
+        if n["HGMMA"] or n["HMMA"] or n["spill_bytes"]:
+            fail(f"the float32 flash kernel {k} has {n['HGMMA']} HGMMA, "
+                 f"{n['HMMA']} HMMA and {n['spill_bytes']} spill bytes; "
+                 f"want none")
     return kernels
 
 
@@ -791,7 +816,7 @@ def phase_kernels(torch, np, build_info):
     rows["stream_pass"] = phase_ring(torch, np, rng, chained)
     rows["segment"] = phase_segment(torch, np, rng, build_info,
                                     rows["stream_pass"]["ring_slots"])
-    rows["flash_attention"] = phase_flash(torch, np, rng)
+    rows.update(phase_flash(torch, np, rng))
     return rows
 
 
@@ -1032,7 +1057,7 @@ def phase_flash(torch, np, rng):
     the port never calls)."""
     from repro_torch.kernels.flash_attention import kernel as fk, ref as fref
     dev = torch.device("cuda")
-    flash_err = 0.0
+    errs = dict.fromkeys(FLASH_TOL, 0.0)   # the largest error of each dtype
     for dtype_name, tol in FLASH_TOL.items():
         dtype = getattr(torch, dtype_name)
         for case in FLASH_CASES:
@@ -1053,7 +1078,7 @@ def phase_flash(torch, np, rng):
             if not ok:
                 fail(f"flash_attention {dtype} {case}: max abs err {err} "
                      f"beyond atol=rtol={tol}")
-            flash_err = max(flash_err, err)
+            errs[dtype_name] = max(errs[dtype_name], err)
 
     B, S, Hq, Hk, hd = SERVE_B, SERVE_S, SERVE_HQ, SERVE_HK, SERVE_HD
     G = Hq // Hk
@@ -1079,47 +1104,82 @@ def phase_flash(torch, np, rng):
         if not ok:
             fail(f"flash_attention {dtype} at the serving shape: max abs err "
                  f"{err}, error RMS / output RMS {rel_rms}")
-        flash_err = max(flash_err, err)
+        errs[dtype_name] = max(errs[dtype_name], err)
         del got, want
-    q, k, v = (t.to(torch.bfloat16) for t in (q32, k32, v32))
-    del q32, k32, v32
+    rows = {"flash_attention": flash_row(
+        torch, fk, fref, *(t.to(torch.bfloat16) for t in (q32, k32, v32)),
+        errs["bfloat16"])}
+    rows["flash_attention_f32"] = flash_row(torch, fk, fref, q32, k32, v32,
+                                            errs["float32"])
+    return rows
 
-    # the library call: k and v expanded to the query heads before capture
+
+def flash_row(torch, fk, fref, q, k, v, flash_err):
+    """The kernel of q's dtype at the serving shape, timed beside its plain
+    version and scaled_dot_product_attention with k and v expanded to the
+    query heads: bf16 on SDPA's own choice (flash), float32 pinned to the
+    memory-efficient backend (the flash backend takes no float32).  The
+    bf16 row's launches are the serve and families phases' paths, the
+    float32 row's their float32 depth cuts'."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    B, S, Hq, Hk, hd = SERVE_B, SERVE_S, SERVE_HQ, SERVE_HK, SERVE_HD
+    G = Hq // Hk
+    f32 = q.dtype == torch.float32
     qs = q.view(B, Hq, S, hd)
     ks = k.view(B, Hk, S, hd).repeat_interleave(G, dim=1)
     vs = v.view(B, Hk, S, hd).repeat_interleave(G, dim=1)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     n_it = 20
+    row = {"name": "flash_attention_f32" if f32 else "flash_attention",
+           "route": "cuda",
+           "source": "src/repro_torch/csrc/flash_attention.cu" if f32 else
+                     "src/repro_torch/csrc/flash_attention_sm90.cu",
+           "replaces": "src/repro/kernels/flash_attention/kernel.py:75"}
+    if f32:
+        backend = SDPBackend.EFFICIENT_ATTENTION
+        with sdpa_kernel(backend):
+            got = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+            want = fref.flash_attention(q, k, v, group=G)
+            row["library_max_abs_err"] = (got.reshape(want.shape)
+                                          - want).abs().max().item()
+            del got, want
+            library_ms = graph_ms(lambda: repeat(
+                lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                       is_causal=True),
+                n_it), n_it)
+        library = (f"scaled_dot_product_attention, {backend.name} backend, "
+                   f"k/v expanded to 28 heads")
+        row["launches"] = 0
+    else:
+        library_ms = graph_ms(lambda: repeat(
+            lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                   is_causal=True),
+            n_it), n_it)
+        library = "scaled_dot_product_attention, k/v expanded to 28 heads"
     ms = graph_ms(lambda: repeat(lambda: fk.flash_attention(
         q, k, v, block_q=512, block_kv=1024, group=G), n_it), n_it)
     plain_ms = graph_ms(lambda: repeat(lambda: fref.flash_attention(
         q, k, v, group=G), 3), 3)
-    library_ms = graph_ms(lambda: repeat(lambda: sdpa(
-        qs, ks, vs, is_causal=True), n_it), n_it)
     flops = fref.flops(B * Hq, S, S, hd, causal=True)
-    nbytes = 2 * (2 * B * Hq * S * hd + 2 * B * Hk * S * hd)  # q,out; k,v
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BPS
-    row = {
-        "name": "flash_attention", "route": "cuda",
-        # the bf16 kernel timed here; float32 runs the SIMT kernel of
-        # csrc/flash_attention.cu, which also holds the C entry point
-        "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
-        "float32_source": "src/repro_torch/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention/kernel.py:75",
+    # q and out, k and v, each once
+    nbytes = q.element_size() * (2 * B * Hq * S * hd + 2 * B * Hk * S * hd)
+    peak = PEAK_FP32_FLOPS if f32 else PEAK_BF16_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BPS
+    row.update({
         "max_abs_err": flash_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(t_ops, t_bytes) * 1e3,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "bound_rate": "bf16 tensor cores dense, datasheet",
+        "bound_rate": ("float32 FMA outside the tensor cores" if f32 else
+                       "bf16 tensor cores dense") + ", datasheet",
         "bound_bytes_ms": t_bytes * 1e3, "flops": flops,
-        "library_ms": library_ms,
-        "library": "scaled_dot_product_attention, k/v expanded to 28 heads",
-        "unit": "one launch: causal prefill attention, B 4, S 2048, "
-                "28 query and 4 KV heads, hd 128, bf16",
+        "library_ms": library_ms, "library": library,
+        "unit": f"one launch: causal prefill attention, B 4, S 2048, 28 "
+                f"query and 4 KV heads, hd 128, {'float32' if f32 else 'bf16'}",
         "timing": "device time: CUDA graph of 20 launches (plain: 3)",
-    }
+    })
     row["achieved_tflops"] = flops / (ms * 1e-3) / 1e12
     row["share_of_bound"] = row["bound_ms"] / ms
-    emit("kernels", kernel="flash_attention", **{
+    emit("kernels", kernel=row["name"], **{
         k_: v_ for k_, v_ in row.items() if k_ != "name"})
     return row
 
@@ -2249,13 +2309,18 @@ def phase_serve(torch, np, rows):
         model = build_model(cut, RunConfig(attn_impl=impl, **f32))
         if params is None:
             params = model.init(torch.Generator(dev).manual_seed(0), dev)
+        fk.launches = 0                   # the float32 kernel's path
         with torch.inference_mode():
             hidden[impl] = model.forward(params, {"tokens": toks})[0]
         reqs = Engine(model, params, batch_slots=2, max_len=520).serve(
             [Request(prompt=list(p), max_new_tokens=8) for p in prompts])
         served[impl] = [r.out_tokens for r in reqs]
+    f32_launches = fk.launches
+    rows["flash_attention_f32"]["launches"] = f32_launches
+    rows["flash_attention_f32"]["serve_cut_launches"] = f32_launches
     err = (hidden["cuda"] - hidden["full"]).abs().max().item()
     emit("serve", step="depth_cut_f32", layers=2, batch=2, prompt=512,
+         flash_f32_launches=f32_launches,
          max_abs_err_hidden=err, tol=DEPTH_CUT_TOL,
          tokens_identical=served["cuda"] == served["full"],
          tokens=served["cuda"])
@@ -2264,6 +2329,8 @@ def phase_serve(torch, np, rows):
              f"by {err} (tolerance {DEPTH_CUT_TOL})")
     if served["cuda"] != served["full"]:
         fail(f"depth cut: greedy tokens differ: {served}")
+    if not f32_launches:
+        fail("depth cut: the float32 flash kernel launched no time")
     del params, hidden
 
     # -- the full model: Qwen2-7B, bf16, weights made on the card ---------
@@ -3123,12 +3190,14 @@ def greedy_steps(model, params, batch, steps: int, max_len: int,
     return torch.cat(out, dim=1).tolist(), hidden
 
 
-def family_depth_cut(torch, np, cfg, dev) -> None:
+def family_depth_cut(torch, np, cfg, dev) -> int:
     """``cfg``'s widths cut in depth, float32: the flash kernel against
     dense attention (final hidden states, greedy tokens of the prefill and
-    CUT_DECODE_STEPS decode steps)."""
+    CUT_DECODE_STEPS decode steps).  Returns the float32 flash launches of
+    the ``"cuda"`` run."""
     import dataclasses
     from repro_torch.configs.run import RunConfig
+    from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.models.model_zoo import build_model
     layers = CUT_LAYERS.get(cfg.family, 2)
     cut = dataclasses.replace(cfg, num_layers=layers)
@@ -3147,9 +3216,11 @@ def family_depth_cut(torch, np, cfg, dev) -> None:
                 cut, RunConfig(attn_impl=impl, **f32))
             if params is None:
                 params = model.init(torch.Generator(dev).manual_seed(0), dev)
+            fk.launches = 0
             tokens[impl], hidden[impl] = greedy_steps(
                 model, params, batch, CUT_DECODE_STEPS,
                 S + CUT_DECODE_STEPS, src_len=src)
+        launches = fk.launches
         checked = {"final_hidden": (hidden["cuda"], hidden["full"])}
         extra = {}
         if cfg.family == "encdec":
@@ -3166,6 +3237,7 @@ def family_depth_cut(torch, np, cfg, dev) -> None:
             and err <= DEPTH_CUT_TOL * scale
     emit("families", step="depth_cut_f32", model=cfg.name, layers=layers,
          batch=CUT_B, prompt=S, frames=src, tol_of_max=DEPTH_CUT_TOL,
+         flash_f32_launches=launches,
          **errs, **extra, tokens_identical=tokens["cuda"] == tokens["full"],
          tokens=tokens["cuda"])
     if not ok:
@@ -3175,6 +3247,7 @@ def family_depth_cut(torch, np, cfg, dev) -> None:
         fail(f"{cfg.name} depth cut: greedy tokens differ: {tokens}")
     if cfg.family == "ssm":
         mamba_checks(torch, np, model, params, dev)
+    return launches
 
 
 def encdec_cut_parts(torch, params, batch, models):
@@ -3185,7 +3258,8 @@ def encdec_cut_parts(torch, params, batch, models):
     weights (logits' std ~512), so a difference at the float32 floor
     upstream flips the argmax key of some queries: the decoders' final
     hidden states, over one encoding and end to end, are printed, not
-    held."""
+    held, beside the dense path's own float32 floor end to end (its gap to
+    the same path in float64)."""
     import torch.nn.functional as F
     from repro_torch.models import encdec
     from repro_torch.models.layers import attention, rmsnorm
@@ -3211,14 +3285,35 @@ def encdec_cut_parts(torch, params, batch, models):
             dec[impl] = m.forward(params, batch)[0]
     finally:
         encdec.encode = encode
-    e2e = (models["cuda"].forward(params, batch)[0]
-           - models["full"].forward(params, batch)[0]).abs().max()
+    out = {impl: m.forward(params, batch)[0] for impl, m in models.items()}
+    # the dense path in float64 (the run's float32 widened, as
+    # tests/test_torch_families.py does): the float32 floor that the
+    # flash/dense gap end to end is measured against
+    import repro_torch.configs.run as run_mod
+    wide = run_mod._DTYPES["float32"]
+    run_mod._DTYPES["float32"] = torch.float64
+    try:
+        f64 = models["full"].forward(
+            map_tensors(params, lambda t: t.double()
+                        if t.is_floating_point() else t),
+            {k: v.double() if v.is_floating_point() else v
+             for k, v in batch.items()})[0]
+    finally:
+        run_mod._DTYPES["float32"] = wide
+
+    def gap(a, b):
+        return (a.double() - b.double()).abs().max().item()
+
     return ({"encoder": (enc["cuda"], enc["full"]),
              "decoder_self_attention": (self_attn["cuda"],
                                         self_attn["full"])},
             {"decoder_on_one_encoding_max_abs_err":
                 (dec["cuda"] - dec["full"]).abs().max().item(),
-             "end_to_end_max_abs_err": e2e.item()})
+             "end_to_end_max_abs_err": gap(out["cuda"], out["full"]),
+             "end_to_end_full_f32_vs_f64_max_abs_err": gap(out["full"], f64),
+             "end_to_end_cuda_vs_full_f64_max_abs_err": gap(out["cuda"],
+                                                            f64),
+             "end_to_end_f64_max_abs": f64.abs().max().item()})
 
 
 def mamba_checks(torch, np, model, params, dev) -> None:
@@ -3572,10 +3667,10 @@ def phase_families(torch, np, rows, calib, host, dev=None):
     import gc
     from repro_torch.configs import get_config
     dev = torch.device("cuda") if dev is None else dev
-    launches = 0
+    launches = f32_launches = 0
     for name, layers, kind in FAMILY_RUNS:
         cfg = get_config(name)
-        family_depth_cut(torch, np, cfg, dev)
+        f32_launches += family_depth_cut(torch, np, cfg, dev)
         check_family_flash(torch, cfg, kind, dev)
         gc.collect()
         torch.cuda.empty_cache()
@@ -3589,6 +3684,8 @@ def phase_families(torch, np, rows, calib, host, dev=None):
     torch.cuda.empty_cache()
     rows["flash_attention"]["launches"] += launches
     rows["flash_attention"]["families_launches"] = launches
+    rows["flash_attention_f32"]["launches"] += f32_launches
+    rows["flash_attention_f32"]["families_cut_launches"] = f32_launches
 
 
 def _sync(torch, dev) -> None:

@@ -447,6 +447,50 @@ def test_flash_attention_matches_plain(dev, case, dtype, tol):
                                atol=tol, rtol=tol)
 
 
+# (BH, BKV, Sq, Sk, hd, causal, window, softcap): the float32 kernel's
+# edges (csrc/flash_attention.cu): every head-dim template, lengths that
+# are no multiple of its tiles (128 rows and keys; 64 at hd 256), Sq != Sk
+# both ways, group 7, windows that leave rows with no key, window 0,
+# softcap, no mask, and enough kv tiles that its ring of 3 half-tile
+# stages wraps many times
+FLASH_F32_EDGES = [
+    (2, 1, 300, 300, 8, True, None, None),
+    (2, 1, 300, 300, 64, True, None, None),
+    (2, 1, 300, 300, 96, True, None, None),
+    (2, 1, 300, 300, 128, True, None, None),
+    (2, 1, 300, 300, 200, True, None, None),
+    (2, 1, 300, 300, 256, True, None, None),
+    (4, 2, 300, 200, 128, True, None, None),        # Sq > Sk
+    (4, 2, 200, 333, 64, True, None, None),         # Sq < Sk
+    (4, 2, 333, 129, 256, False, None, None),       # Sq > Sk, no mask
+    (14, 2, 260, 260, 128, True, None, None),       # group 7
+    (14, 2, 150, 150, 64, True, 33, 20.0),          # group 7, window, cap
+    (2, 1, 300, 100, 128, True, 20, None),          # rows 120.. see no key
+    (2, 1, 300, 100, 256, True, 20, None),          # the same at hd 256
+    (2, 2, 200, 200, 128, True, 0, None),           # window 0: no row
+    (2, 2, 200, 200, 64, False, 0, 30.0),           # window 0, not causal
+    (2, 1, 257, 300, 128, False, None, 50.0),       # not causal, softcap
+    (2, 1, 1000, 1000, 128, True, None, None),      # 8 kv tiles
+    (2, 1, 1000, 1000, 64, False, 300, None),       # a window, not causal
+    (2, 1, 600, 600, 256, True, None, 30.0),        # 10 kv tiles of 64
+]
+
+
+@pytest.mark.parametrize("case", FLASH_F32_EDGES)
+def test_flash_attention_f32_edges_match_plain(dev, case):
+    BH, BKV, Sq, Sk, hd, causal, window, softcap = case
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal((n, S, hd)).astype(
+        np.float32)).to(dev) for n, S in ((BH, Sq), (BKV, Sk), (BKV, Sk)))
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              group=BH // BKV)
+    before = fk.launches
+    got = fk.flash_attention(q, k, v, block_q=Sq, block_kv=Sk, **kw)
+    assert fk.launches == before + 1
+    torch.testing.assert_close(got, fref.flash_attention(q, k, v, **kw),
+                               atol=2e-5, rtol=2e-5)
+
+
 def test_reduced_engine_serves_the_same_tokens_with_the_kernel(dev):
     """float32, so the kernel and the dense path agree far inside a logit
     gap; greedy tokens must be identical."""

@@ -6,6 +6,9 @@ the JAX package's own tolerances (``tests/test_kernels.py``): 2e-5 in
 float32, 2e-2 in bfloat16.  ``tests/test_torch_cuda.py`` holds the CUDA
 kernel to the plain version on a card.
 """
+import os
+import sys
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,6 +20,10 @@ from repro.models.layers import attend_full as j_attend_full
 from repro_torch.kernels.flash_attention import kernel as tk, ops as tops
 from repro_torch.kernels.flash_attention import ref as tref
 from repro_torch.models.layers import attend_full as t_attend_full
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+from chip_smoke import FLASH_TOL  # noqa: E402  (the repository's root)
 
 SWEEP = [
     # (BH, BKV, S, hd, bq, bkv, causal, window, softcap)
@@ -187,3 +194,31 @@ def test_flops_count_the_visible_pairs(Sq, Sk, causal, window):
         ok &= qp - kp < window
     assert tref.flops(3, Sq, Sk, 16, causal=causal, window=window) == \
         4.0 * 3 * 16 * ok.sum()
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32's 10-bit mantissa (to nearest, ties to even)."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0xFFF + ((b >> 13) & 1)) & ~0x1FFF).view(torch.float32)
+
+
+def test_tf32_products_leave_the_float32_tolerance():
+    """A witness for the card's float32 checks: a kernel that fed TF32
+    products (q, k, p and v rounded to 10 mantissa bits, sums in float32)
+    would leave FLASH_TOL["float32"], against which chip_smoke.py and the
+    card tests hold the float32 kernel; the plain version stays within it
+    of the JAX oracle."""
+    q, k, v = _t(*_qkv(2, 2, 64, 128, seed=10))
+    tol = FLASH_TOL["float32"]
+    want = tref.flash_attention(q, k, v, causal=True)
+    oracle = np.asarray(fref.flash_attention(*_j(*(t.numpy() for t in (
+        q, k, v))), causal=True))
+    np.testing.assert_allclose(want.numpy(), oracle, atol=tol, rtol=tol)
+    s = torch.einsum("bqd,bkd->bqk", _tf32(q), _tf32(k)) * 128 ** -0.5
+    pos = torch.arange(64)
+    s = s.masked_fill(pos[None, :] > pos[:, None], tref.NEG_INF)
+    tf32 = torch.einsum("bqk,bkd->bqd", _tf32(torch.softmax(s, dim=-1)),
+                        _tf32(v))
+    assert _tf32(torch.tensor([1.0 + 3 * 2.0 ** -11])).item() == \
+        1.0 + 2.0 ** -9
+    assert not torch.allclose(tf32, want, atol=tol, rtol=tol)
