@@ -370,6 +370,9 @@ MAMBA_PREFIX, MAMBA_DECODE = 32, 16
 # one MoE training step: Moonlight-16B-A3B's widths cut to 2 layers (1.81e9
 # parameters, ~29 GB of f32 weights and moments), batch 1 x 4096 tokens
 MOE_TRAIN_LAYERS, MOE_TRAIN_SEQ = 2, 4096
+# the MoE families' router over the serve traffic's left-pad positions,
+# under the flash kernel and under dense attention (moe_pad_routing)
+MOE_PAD_IMPLS = ("cuda", "full")
 # the static watcher: the prefill's dot flops within STATIC_DOT_TOL of the
 # analytic count (integers below 2^53 summed in float64: exact but for
 # the order of the sum); a replay's consumed flops within
@@ -384,13 +387,22 @@ EXAMPLES_AT_ONCE = 3
 # the dry-run (src/repro_torch/launch/dryrun.py): production cells on the
 # 16 x 16 mesh (256 fake ranks) and Qwen2-72B's decode on 2 x 16 x 16
 # (512), each (arch, shape, multi-pod); a decode cell's per-device bytes
-# must fit the 80 GB of an H100
+# must fit the 80 GB of an H100.  The SSM families' scan and decode update
+# run on each device's shards (models/ssm.py): Mamba-2's prefill and
+# Hymba's decode, its cheapest cell, on 16 x 16 (their 2 x 16 x 16 cells
+# take minutes of host time each: the CPU sweep, tools/dryrun_sweep.py,
+# holds them)
 DRYRUN_CELLS = (("qwen2-7b", "train_4k", False),
                 ("qwen2-7b", "prefill_32k", False),
                 ("qwen2-7b", "decode_32k", False),
                 ("qwen2-7b", "long_500k", False),
                 ("qwen2-1.5b", "decode_32k", False),
-                ("qwen2-72b", "decode_32k", True))
+                ("qwen2-72b", "decode_32k", True),
+                ("mamba2-780m", "prefill_32k", False),
+                ("hymba-1.5b", "decode_32k", False))
+# the Mamba-2 prefill held against the card: its published widths cut to
+# DRYRUN_MAMBA_LAYERS layers, SERVE_B x SERVE_S tokens
+DRYRUN_MAMBA_LAYERS = 4
 DRYRUN_DEVICE_BYTES = 80e9
 # the dry-run on a 1 x 1 mesh against the same step on the card: argument
 # bytes exact, flops within DRYRUN_FLOPS_TOL (integers summed in float64
@@ -2701,9 +2713,11 @@ def phase_dryrun(torch, dev=None) -> None:
     ``from_dryrun_artifact``; fails if a cell is not ok, if its mesh is
     not 256 or 512 devices, or if a decode cell's ``per_device_total``
     reaches DRYRUN_DEVICE_BYTES.  (b) ``dryrun_card_check`` of Qwen2-7B's
-    prefill of SERVE_B x SERVE_S tokens at full depth (SERVE_RUN) and the
+    prefill of SERVE_B x SERVE_S tokens at full depth (SERVE_RUN), the
     train phase's TRAIN_LAYERS-layer step of 1 x TRAIN_SEQ tokens
-    (TRAIN_RUN).  Ends the fake process group."""
+    (TRAIN_RUN) and Mamba-2's prefill of SERVE_B x SERVE_S tokens at
+    DRYRUN_MAMBA_LAYERS layers (SERVE_RUN).  Ends the fake process
+    group."""
     import dataclasses
     import tempfile
     from repro_torch.configs import get_config
@@ -2771,6 +2785,18 @@ def phase_dryrun(torch, dev=None) -> None:
         torch, f"qwen2-7b train {TRAIN_LAYERS} layers 1x{TRAIN_SEQ}", tcfg,
         ShapeConfig("train", TRAIN_SEQ, 1, "train"), TRAIN_RUN, train_args,
         dev)
+    mcfg = dataclasses.replace(get_config("mamba2-780m"),
+                               num_layers=DRYRUN_MAMBA_LAYERS)
+    dryrun_card_check(
+        torch, f"mamba2-780m prefill {DRYRUN_MAMBA_LAYERS} layers "
+        f"{SERVE_B}x{SERVE_S}", mcfg,
+        ShapeConfig("prefill", SERVE_S, SERVE_B, "prefill"), SERVE_RUN,
+        lambda d: (build_model(mcfg, SERVE_RUN).init(
+            torch.Generator(d).manual_seed(0), d),
+            {"tokens": torch.randint(
+                0, mcfg.vocab_size, (SERVE_B, SERVE_S), device=d,
+                generator=torch.Generator(d).manual_seed(1),
+                dtype=torch.int32)}), dev)
     close_fake_world()
     phase_s = time.perf_counter() - t_phase
     emit("dryrun", step="phase", seconds=phase_s, limit_s=DRYRUN_PHASE_S)
@@ -3569,6 +3595,8 @@ def family_serve(torch, np, cfg, kind, dev, host, calib):
         fail(f"{cfg.name}: tokens {tokens}")
     if moe and not 0.0 <= moe["moe_drop_fraction_prefill"] < 1.0:
         fail(f"{cfg.name}: drop fraction {moe}")
+    if moe and kind.startswith("engine"):
+        moe_pad_routing(torch, cfg, params, batch["tokens"], plens)
 
     # a prefill and 4 decode steps under the profiler: the trace must hold
     # every flash launch the wrapper counted (PERF.md, open questions)
@@ -3609,6 +3637,60 @@ def family_serve(torch, np, cfg, kind, dev, host, calib):
     if got != want or rep.mode != "fused" or not got["segment"]:
         fail(f"{cfg.name} replay ({rep.mode}) counted {got}, want {want}")
     return launches
+
+
+def moe_pad_routing(torch, cfg, params, tokens, plens) -> dict:
+    """The MoE drop fraction under left padding (ROADMAP.md queue 3): one
+    prefill of the serve traffic's left-padded batch ``tokens`` under
+    each of MOE_PAD_IMPLS, recording the router's top-k over the pad
+    positions of the row with the most padding, in the first and the
+    last MoE layer: how many distinct expert sets those positions pick,
+    the share of their (token, slot) pairs over capacity, and how far
+    apart their router inputs lie (the largest distance from the first
+    pad's over the largest magnitude).  Were the pads one hidden state,
+    they would pick one set."""
+    import dataclasses
+    from repro_torch.configs.run import SERVE_RUN
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.serve.step import make_prefill_step
+    t0 = time.perf_counter()
+    row = min(range(len(plens)), key=lambda i: plens[i])
+    pads = max(plens) - plens[row]
+    route = moe_lib._route
+    out = {}
+    for impl in MOE_PAD_IMPLS:
+        model = build_model(cfg, dataclasses.replace(SERVE_RUN,
+                                                     attn_impl=impl))
+        seen = []
+
+        def recording(router, x, cfg_):
+            r = route(router, x, cfg_)
+            got = (x[row, :pads].float(), r[3][row, :pads], r[5][row, :pads])
+            seen[1:] = [got]
+            if len(seen) == 1:
+                seen.append(got)
+            return r
+        moe_lib._route = recording
+        try:
+            with torch.inference_mode():
+                make_prefill_step(model, tokens.shape[1])(
+                    params, {"tokens": tokens})
+        finally:
+            moe_lib._route = route
+        for name, (x, idx, keep) in zip(("first", "last"), seen):
+            out[f"{impl}_{name}"] = {
+                "distinct_sets": int(torch.unique(
+                    torch.sort(idx, dim=-1).values, dim=0).shape[0]),
+                "dropped_share": 1.0 - keep.float().mean().item(),
+                "spread": ((x - x[:1]).abs().max()
+                           / x.abs().max()).item()}
+        del model, seen
+    emit("families", step="moe_pad_routing", model=cfg.name,
+         layers=cfg.num_layers, row=row, pads=pads, top_k=cfg.moe.top_k,
+         experts=cfg.moe.num_experts, seconds=time.perf_counter() - t0,
+         **out)
+    return out
 
 
 def moe_train_step(torch, np, dev) -> None:

@@ -33,7 +33,7 @@ from repro_torch.models.params import PDef, map_tensors, stack_pdefs
 from repro_torch.models.transformer import (_attn_run, _cache_set,
                                             _remat_wrap, _stack_layers,
                                             init_attn_cache)
-from repro_torch.parallel.sharding import shard
+from repro_torch.parallel.sharding import shard, shard_local
 
 
 # ---------------------------------------------------------------------------
@@ -96,9 +96,17 @@ def cross_attention(p, x, *, cfg: ModelConfig, run: RunConfig,
                              softcap=None, block_q=run.block_q,
                              block_kv=run.block_kv)
     else:
-        out = attend_full(qg, k, v, q_pos=torch.arange(S, device=x.device),
-                          k_pos=torch.arange(k.shape[1], device=x.device),
-                          causal=False, window=None, softcap=None)
+        # on each device's shards of batch and KV heads, as self-attention
+        # runs it (layers.attention): on DTensors, the planner of
+        # DTensor's redistributions searches the scores' einsum over a
+        # three-axis mesh for minutes a layer
+        q_pos = torch.arange(S, device=x.device)
+        k_pos = torch.arange(k.shape[1], device=x.device)
+        out = shard_local(
+            lambda q_, k_, v_: attend_full(
+                q_, k_, v_, q_pos=q_pos, k_pos=k_pos, causal=False,
+                window=None, softcap=None),
+            qg, k, v, dims=(0, 2))
     out = out.reshape(B, S, hq * hd)
     return out @ p["wo"].to(x.dtype).reshape(hq * hd, D)
 

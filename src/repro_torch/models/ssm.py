@@ -24,7 +24,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.op_analysis import close_trip, open_trip
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.models.params import PDef
-from repro_torch.parallel.sharding import shard
+from repro_torch.parallel.sharding import (Along, grad_like, local_span,
+                                           seq_product, shard, shard_local)
 
 
 # ---------------------------------------------------------------------------
@@ -187,6 +188,86 @@ def ssd_reference(x, dt, A, Bm, Cm, initial_state=None):
 
 
 # ---------------------------------------------------------------------------
+# On each device's shards
+# ---------------------------------------------------------------------------
+
+def _groups_of(h0: int, hl: int, H: int, G: int) -> slice:
+    """The groups of B and C that heads ``h0 .. h0 + hl - 1`` of ``H``
+    read, each group standing for ``H // G`` consecutive heads: a slice
+    whose groups each cover the same number of those heads, as
+    ``ssd_chunked``'s repeat over them needs."""
+    rep = H // G
+    g0, g1 = h0 // rep, (h0 + hl - 1) // rep + 1
+    if g1 - g0 > 1 and (h0 % rep or hl % rep):
+        raise ValueError(f"heads {h0}..{h0 + hl - 1} split groups of {rep} "
+                         f"heads unevenly")
+    return slice(g0, g1)
+
+
+def _rates(dt_raw, dt_bias, A_log):
+    """(dt, A): the step sizes ``softplus(dt_raw + dt_bias)`` [..., H]
+    and the decay rates ``-exp(A_log)`` [H], in float32.  Run on each
+    device's shards: DTensor decomposes ``softplus`` where a torch version
+    has no layout rule for it, and the dry-run would count other
+    operations than a device runs."""
+    return (F.softplus(dt_raw.float() + dt_bias.float()),
+            -torch.exp(A_log.float()))
+
+
+def _ssd_on_shards(x, dt_raw, p, Bm, Cm, *, chunk: int, return_state: bool):
+    """``ssd_chunked`` of the heads ``x`` [B, L, H, P], their raw steps
+    ``dt_raw`` [B, L, H] and B and C [B, L, G, N] by group, with the
+    block's ``dt_bias`` and ``A_log`` (``_rates``), on each device's
+    shards of batch and heads (``shard_local`` along x's dims 0 and 2),
+    where no op couples two heads or two rows: DTensor would gather the
+    heads for the chunk products, and each device would count them for
+    every head.  B and C arrive whole along their groups and each device
+    takes its heads' groups (``_groups_of``): expanding them to heads
+    first would hold every head's copy until the cut.  The per-head
+    parameters lie along the heads, the final state [B, H, P, N] along
+    batch and heads as the cache is.  Plain tensors go to ``ssd_chunked``
+    as they are."""
+    h0, hl = local_span(x, (0, 2), 2)
+    groups = _groups_of(h0, hl, x.shape[2], Bm.shape[2])
+
+    def scan(x_, dt_raw_, bias_, A_log_, B_, C_):
+        dt, A = _rates(dt_raw_, bias_, A_log_)
+        out = ssd_chunked(x_, dt, A, B_[:, :, groups], C_[:, :, groups],
+                          chunk=chunk, return_state=return_state)
+        return (out[0], Along(out[1], (0, 1))) if return_state else out
+    return shard_local(scan, x, dt_raw, Along(p["dt_bias"], (None, 0)),
+                       Along(p["A_log"], (None, 0)), Along(Bm, (0, None)),
+                       Along(Cm, (0, None)), dims=(0, 2))
+
+
+def _decode_update(ssm, xh, dt_raw, p, Bg, Cg):
+    """One token's state update and read-out on each device's shards of
+    batch and heads, laid out as the cache's state ``ssm`` [B, H, P, N]
+    is (``shard_local`` along its dims 0 and 1): xh [B, H, P], dt_raw
+    [B, H], the block's per-head ``dt_bias``, ``A_log`` and ``D`` [H]
+    (``_rates``), B and C [B, G, N] by group.  Returns (y [B, H, P] in
+    float32, the new state) in the cache's layout."""
+    h0, hl = local_span(ssm, (0, 1), 1)
+    groups = _groups_of(h0, hl, ssm.shape[1], Bg.shape[1])
+
+    def step(ssm_, xh_, dt_raw_, bias_, A_log_, D_, Bg_, Cg_):
+        dt1, A = _rates(dt_raw_, bias_, A_log_)
+        rep = xh_.shape[1] // (groups.stop - groups.start)
+        Bh = Bg_[:, groups].repeat_interleave(rep, dim=1)
+        Ch = Cg_[:, groups].repeat_interleave(rep, dim=1)
+        decay = torch.exp(dt1 * A[None, :])
+        ssm_ = ssm_.float() * decay[:, :, None, None] + torch.einsum(
+            "bh,bhn,bhp->bhpn", dt1, Bh.float(), xh_.float())
+        y = torch.einsum("bhn,bhpn->bhp", Ch.float(), ssm_)
+        return y + D_.float()[None, :, None] * xh_.float(), ssm_
+    return shard_local(step, ssm, xh, dt_raw,
+                       *(Along(p[k], (None, 0))
+                         for k in ("dt_bias", "A_log", "D")),
+                       Along(Bg, (0, None)), Along(Cg, (0, None)),
+                       dims=(0, 1))
+
+
+# ---------------------------------------------------------------------------
 # Full block
 # ---------------------------------------------------------------------------
 
@@ -211,12 +292,13 @@ def mamba2_block(p, x, *, cfg: ModelConfig,
     di, nh = cfg.d_inner, cfg.ssm_heads
     G, N, P_ = s.ngroups, s.state_dim, s.head_dim
 
-    proj = x @ p["in_proj"].to(x.dtype)
+    # the split's backward brings the gradient of in_proj's output back
+    # sharded along the sequence on a three-axis mesh, where the product's
+    # backward gathers the sequence and counts the weight's gradient for
+    # all of its columns on every device: lay it out as the output is
+    proj = grad_like(seq_product(x, p["in_proj"].to(x.dtype)))
     z, xi, Bc, Cc, dt_raw = _split_proj(cfg, proj)
     xBC = torch.cat([xi, Bc, Cc], dim=-1)
-
-    A = -torch.exp(p["A_log"].float())
-    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())    # [B,S,nh]
 
     if decode:
         if cache is None or S != 1:
@@ -225,16 +307,9 @@ def mamba2_block(p, x, *, cfg: ModelConfig,
                                        p["conv_b"].to(x.dtype),
                                        state=cache["conv"])
         xi, Bc, Cc = torch.split(xBC, [di, G * N, G * N], dim=-1)
-        xh = xi.reshape(B, nh, P_)
-        Bh = Bc.reshape(B, G, N).repeat_interleave(nh // G, dim=1)
-        Ch = Cc.reshape(B, G, N).repeat_interleave(nh // G, dim=1)
-        dt1 = dt[:, 0, :]                                    # [B,nh]
-        decay = torch.exp(dt1 * A[None, :])
-        ssm = cache["ssm"].float()
-        ssm = ssm * decay[:, :, None, None] + torch.einsum(
-            "bh,bhn,bhp->bhpn", dt1, Bh.float(), xh.float())
-        y = torch.einsum("bhn,bhpn->bhp", Ch.float(), ssm)
-        y = y + p["D"].float()[None, :, None] * xh.float()
+        y, ssm = _decode_update(cache["ssm"], xi.reshape(B, nh, P_),
+                                dt_raw[:, 0, :], p, Bc.reshape(B, G, N),
+                                Cc.reshape(B, G, N))
         y = y.reshape(B, 1, di).to(x.dtype)
         new_cache = {"conv": conv_state, "ssm": ssm}
     else:
@@ -246,8 +321,9 @@ def mamba2_block(p, x, *, cfg: ModelConfig,
         Bh = Bc.reshape(B, S, G, N)
         Ch = Cc.reshape(B, S, G, N)
         want_state = cache is not None
-        out = ssd_chunked(xh, dt, A, Bh, Ch, chunk=min(s.chunk_size, S),
-                          return_state=want_state)
+        out = _ssd_on_shards(xh, dt_raw, p, Bh, Ch,
+                             chunk=min(s.chunk_size, S),
+                             return_state=want_state)
         if want_state:
             y4, ssm_state = out
         else:
@@ -259,7 +335,7 @@ def mamba2_block(p, x, *, cfg: ModelConfig,
             new_cache = {"conv": conv_tail, "ssm": ssm_state}
 
     y = _gated_norm(p, y, z)
-    return y @ p["out_proj"].to(x.dtype), new_cache
+    return seq_product(y, p["out_proj"].to(x.dtype)), new_cache
 
 
 def init_mamba_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,

@@ -27,7 +27,7 @@ from __future__ import annotations
 import contextlib
 import threading
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -323,20 +323,55 @@ def local_shard(x):
     return x.to_local(), tuple(offset)
 
 
-def _along(x, dims):
-    """``x``'s placements with its shards of tensor ``dims`` kept and
-    every other mesh dim replicated."""
-    from torch.distributed.tensor import Replicate
-    return tuple(p if p.is_shard() and p.dim in dims else Replicate()
-                 for p in x.placements)
+def local_span(x, dims, dim: int) -> Tuple[int, int]:
+    """(global index of the first, count) of this device's elements of
+    ``x``'s dim ``dim`` once ``x`` is laid out along ``dims`` as
+    ``shard_local`` lays it; of a plain tensor, (0, its size)."""
+    if not is_dtensor(x):
+        return 0, x.shape[dim]
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    shape, offset = compute_local_shape_and_global_offset(
+        x.shape, x.device_mesh, _along(x.placements, dims))
+    return offset[dim], shape[dim]
 
 
-def local_like(t, x, dims):
+def _along(placements, dims, to=None):
+    """A DTensor's ``placements`` with its shards of tensor ``dims`` kept
+    and every other mesh dim replicated; with ``to``, each shard of
+    ``dims[i]`` moved to tensor dim ``to[i]`` (replicated where that is
+    None)."""
+    from torch.distributed.tensor import Replicate, Shard
+    if to is None:
+        return tuple(p if p.is_shard() and p.dim in dims else Replicate()
+                     for p in placements)
+    out = []
+    for p in placements:
+        d = to[dims.index(p.dim)] if p.is_shard() and p.dim in dims \
+            else None
+        out.append(Replicate() if d is None else Shard(d))
+    return tuple(out)
+
+
+class Along(NamedTuple):
+    """A tensor beside ``shard_local``'s ``x`` whose dims ``dims`` stand
+    where ``x``'s ``dims`` do, position by position (None: replicated
+    there): decay rates [H] beside ``x`` [B, S, H, P] run along (0, 2) are
+    ``Along(A, (None, 0))``, a state [B, H, P, N] ``Along(s, (0, 1))``."""
+    tensor: torch.Tensor
+    dims: Tuple[Optional[int], ...]
+
+
+def local_like(t, x, dims, to=None):
     """The local shard of ``t`` laid out as ``x`` is along tensor ``dims``
-    and replicated along the others (a collective where it was not).  A
-    plain ``t`` beside a DTensor ``x`` is the whole value, replicated (as
-    under ``use_sharding``), so it is cut to the same shard with no
-    collective; beside a plain ``x``, ``t`` itself."""
+    and replicated along the others (a collective where it was not); with
+    ``to``, ``x``'s shards of ``dims[i]`` fall on ``t``'s dim ``to[i]``
+    (``Along``), and where ``t`` is then replicated along a mesh dim that
+    splits ``x``, each device reads it for its own shard of ``x``, so its
+    gradient there is a partial sum.  A plain ``t`` beside a DTensor ``x``
+    is the whole value, replicated (as under ``use_sharding``), so it is
+    cut to the same shard with no collective; beside a plain ``x``, ``t``
+    itself."""
     if not is_dtensor(t):
         if not is_dtensor(x):
             return t
@@ -344,10 +379,17 @@ def local_like(t, x, dims):
         t = DTensor.from_local(t, x.device_mesh,
                                (Replicate(),) * x.device_mesh.ndim,
                                run_check=False)
-    place = _along(x, dims)
+    place = _along(x.placements, dims, to)
     if tuple(t.placements) != place:
         t = t.redistribute(x.device_mesh, place)
-    return t.to_local()
+    if to is None:
+        return t.to_local()
+    from torch.distributed.tensor import Partial
+    grad = tuple(Partial() if q.is_replicate() and p.is_shard() else q
+                 for p, q in zip(_along(x.placements, dims), place))
+    if grad == place:
+        return t.to_local()
+    return _LaidGrad.apply(t).to_local(grad_placements=grad)
 
 
 def unsharded(x, dims):
@@ -403,6 +445,28 @@ class _GatheredGrad(torch.autograd.Function):
         return merge_ready(g, 0, g.dim() - 1)
 
 
+class _LaidGrad(torch.autograd.Function):
+    """Identity on a DTensor whose backward lays the gradient out as the
+    DTensor is (``grad_like``), but along the mesh dims where the DTensor
+    holds partial sums, which a gradient cannot take: partial sums of the
+    gradient are summed into that layout (``local_like``'s ``Along``
+    tensors: at the tensor's size where it leaves ``shard_local``, not
+    carried on into the ops that made it and reduced at theirs)."""
+
+    @staticmethod
+    def forward(ctx, t):
+        ctx.placements = t.placements
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        want = tuple(q if f.is_partial() else f
+                     for f, q in zip(ctx.placements, g.placements))
+        if tuple(g.placements) == want:
+            return g
+        return g.redistribute(g.device_mesh, want)
+
+
 class _ContiguousGrad(torch.autograd.Function):
     """Identity whose backward makes the gradient contiguous: a local
     shard's gradient (``shard_local``) goes back into a DTensor, whose
@@ -415,6 +479,16 @@ class _ContiguousGrad(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g.contiguous()
+
+
+def grad_like(t):
+    """``t`` whose gradient is laid out as ``t`` is, as GSPMD gives a
+    cotangent its primal's sharding.  DTensor's op rules choose the
+    layouts of a backward by their wire bytes alone: one that comes back
+    sharded along another dim can leave the next product of the backward
+    counted whole on every device.  Any other tensor is returned as it
+    is."""
+    return _LaidGrad.apply(t) if is_dtensor(t) else t
 
 
 def seq_product(x, w):
@@ -436,25 +510,48 @@ def shard_local(fn, x, *others, dims: Tuple[int, ...], whole=()):
     """``fn(x, *others, *whole)`` run on each device's shards, where the
     function is independent along ``dims`` (batch and heads of an
     attention, the rows of a routing): ``x`` and the DTensors of
-    ``others`` are laid out as ``x`` is along those dims and replicated
-    along the others, those of ``whole`` replicated (``local_like``:
-    a collective where they were not), ``fn`` runs on their local shards
-    with no DTensor in sight, and each tensor of its result (a tensor or
-    nested tuples of them) is laid out as ``x``'s shards were.  Plain
-    tensors go to ``fn`` as they are."""
+    ``others`` are laid out as ``x`` is along those dims (an ``Along``
+    of ``others`` along its own dims) and replicated along the others,
+    those of ``whole`` replicated (``local_like``: a collective where they
+    were not), ``fn`` runs on their local shards with no DTensor in
+    sight, and each tensor of its result (a tensor, an ``Along``, or
+    nested tuples of them) is laid out as ``x``'s shards were (an
+    ``Along``'s along its dims).  Plain tensors go to ``fn`` as they
+    are, and an ``Along`` as its tensor."""
     if not is_dtensor(x):
-        return fn(x, *others, *whole)
-    from torch.distributed.tensor import DTensor
-    mesh, place = x.device_mesh, _along(x, dims)
-    out = fn(*(_ContiguousGrad.apply(local_like(t, x, dims))
-               for t in (x, *others)),
-             *(_ContiguousGrad.apply(local_like(t, x, ())) for t in whole))
+        return _unwrapped(fn(x, *_unwrapped(others), *whole))
+    laid = [_ContiguousGrad.apply(local_like(t.tensor, x, dims, t.dims)
+                                  if isinstance(t, Along) else
+                                  local_like(t, x, dims))
+            for t in (x, *others)]
+    laid += [_ContiguousGrad.apply(local_like(t, x, ())) for t in whole]
+    return _wrapped(fn(*laid), x.device_mesh, tuple(x.placements), dims)
 
-    def wrap(t):
-        if isinstance(t, (tuple, list)):
-            return type(t)(wrap(u) for u in t)
-        return DTensor.from_local(t, mesh, place, run_check=False)
-    return wrap(out)
+
+def _wrapped(t, mesh, placements, dims):
+    """``shard_local``'s result ``t`` as DTensors laid out along ``dims``
+    as ``placements`` are (an ``Along`` along its own dims).  A function
+    of the module, not a closure: a nested function that calls itself
+    holds its frame's tensors until the collector finds the cycle, which
+    the dry-run's peak of live bytes would count."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(t, Along):
+        return DTensor.from_local(t.tensor, mesh,
+                                  _along(placements, dims, t.dims),
+                                  run_check=False)
+    if isinstance(t, (tuple, list)):
+        return type(t)(_wrapped(u, mesh, placements, dims) for u in t)
+    return DTensor.from_local(t, mesh, _along(placements, dims),
+                              run_check=False)
+
+
+def _unwrapped(t):
+    """``t`` with each ``Along`` in it (nested tuples) its tensor."""
+    if isinstance(t, Along):
+        return t.tensor
+    if isinstance(t, (tuple, list)):
+        return type(t)(_unwrapped(u) for u in t)
+    return t
 
 
 def fsdp_gathered(weights, x):

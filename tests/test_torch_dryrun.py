@@ -27,6 +27,7 @@ from repro_torch.core.predictor import from_dryrun_artifact
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import close_fake_world, fake_device_mesh
 from repro_torch.models.layers import attend_blocked
+from repro_torch.models import ssm
 from repro_torch.models.model_zoo import build_model
 from repro_torch.models.params import map_tensors
 from repro_torch.parallel.sharding import TRAIN_RULES, make_rules
@@ -158,13 +159,16 @@ def test_abstract_params_and_state_have_no_data():
 # the counts of a sharded step
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["qwen2-7b", "gemma2-2b"])
+@pytest.mark.parametrize("arch", ["qwen2-7b", "gemma2-2b", "mamba2-780m",
+                                  "hymba-1.5b"])
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
 def test_one_by_one_mesh_counts_what_the_plain_step_counts(kind, arch):
     """On a 1 x 1 fake mesh the DTensor step counts exactly what the same
     step counts on plain meta tensors: flops, transcendentals, bytes, the
     peak of live bytes, arguments and outputs: the sharded and the plain
-    step run one program."""
+    step run one program.  The SSM families too, whose scan and decode
+    update (with their ``softplus``, which DTensor would decompose) run
+    through ``shard_local``."""
     cfg = reduced_config(get_config(arch))
     shape, run = _cell(kind)
     mesh = fake_device_mesh((1, 1), ("data", "model"))
@@ -222,6 +226,137 @@ def test_decode_moves_less_than_its_local_cache():
     rec = dryrun.analyze(low, mesh, meta)
     assert rec["memory"]["per_device_total"] == \
         rec["memory"]["argument_bytes"] + low.peak_live_bytes
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2: the scan and the decode update on each device's shards
+# ---------------------------------------------------------------------------
+
+def _recorded(monkeypatch, name, calls):
+    """``ssm.<name>`` wrapped to append, a call, what it added to the
+    active counter: (flops, collectives, its tensor arguments' dtypes,
+    its keyword arguments)."""
+    inner = getattr(ssm, name)
+
+    def counted(*a, **kw):
+        c = op_analysis.active_counter()
+        before = c.total
+        out = inner(*a, **kw)
+        after = c.total
+        calls.append((after.flops - before.flops,
+                      after.collectives[len(before.collectives):],
+                      [t.dtype for t in a if isinstance(t, torch.Tensor)],
+                      kw))
+        return out
+    monkeypatch.setattr(ssm, name, counted)
+    return inner
+
+
+def _model_gathers(collectives, model: int = 4) -> float:
+    """The wire bytes of the all-gathers along 'model' (the last axis of
+    a (data, model) mesh: groups of ``model`` ranks at stride 1)."""
+    return sum(c.total_bytes for c in collectives
+               if c.kind == "all-gather" and
+               (c.group_size, c.stride) == (model, 1))
+
+
+def test_mamba2_scan_counts_one_devices_share(monkeypatch):
+    """On a 2 x 4 mesh each counted scan is one device's share: its flops
+    equal those of the plain ``ssd_chunked`` counted on meta tensors of
+    one device's shapes (half the batch rows, a quarter of the heads),
+    and it issues no collective."""
+    cfg = reduced_config(get_config("mamba2-780m"))
+    shape, run = _cell("prefill", seq=32, batch=4)
+    mesh = fake_device_mesh((2, 4), ("data", "model"), "cpu")
+    calls = []
+    plain = _recorded(monkeypatch, "ssd_chunked", calls)
+    dryrun.lower_cell(cfg, shape, mesh, run)
+    B, S, H, P = 4 // 2, 32, cfg.ssm_heads // 4, cfg.ssm.head_dim
+    G, N = cfg.ssm.ngroups, cfg.ssm.state_dim
+    assert len(calls) == cfg.num_layers
+    for flops, colls, (xd, dd, ad, bd, cd), kw in calls:
+        want = op_analysis.analyze(
+            plain, *(torch.empty(s, dtype=d, device="meta") for s, d in (
+                ((B, S, H, P), xd), ((B, S, H), dd), ((H,), ad),
+                ((B, S, G, N), bd), ((B, S, G, N), cd))), **kw)
+        assert flops == pytest.approx(want.flops, rel=1e-9, abs=0)
+        assert colls == []
+
+
+def test_mamba2_block_gathers_along_model_only_the_residual_and_the_splits(
+        monkeypatch):
+    """What a Mamba-2 block all-gathers along 'model' on a 2 x 4 mesh, a
+    device's bytes by the ring model ((m - 1) / m of the gathered local
+    tensor): in prefill, the residual stream's sequence-parallel gather
+    before ``in_proj``, the gathers of the two splits whose column shards
+    do not line up with the heads (``in_proj``'s output into z, x, B, C
+    and dt; the convolution's into x, B and C: GSPMD must move these
+    bytes too), and the gated norm's
+    per-row statistic; in decode, the two splits.  Nothing else: the scan
+    and the decode update gather neither heads nor the cache's state."""
+    cfg = reduced_config(get_config("mamba2-780m"))
+    di, H = cfg.d_inner, cfg.ssm_heads
+    GN = cfg.ssm.ngroups * cfg.ssm.state_dim
+    mesh = fake_device_mesh((2, 4), ("data", "model"), "cpu")
+    for kind, S in (("prefill", 32), ("decode", 1)):
+        shape, run = _cell(kind, seq=32, batch=4)
+        calls = []
+        _recorded(monkeypatch, "mamba2_block", calls)
+        dryrun.lower_cell(cfg, shape, mesh, run)
+        monkeypatch.undo()
+        rows = 2 * S * 3 / 4                   # a device's rows, (m - 1) / m
+        item = torch.empty((), dtype=run.cdtype).element_size()
+        splits = rows * item * ((2 * di + 2 * GN + H) + (di + 2 * GN))
+        want = splits + rows * (item * cfg.d_model + 4) \
+            if kind == "prefill" else splits
+        assert len(calls) == cfg.num_layers
+        for _, colls, _, _ in calls:
+            assert _model_gathers(colls) == want, kind
+
+
+def test_a_dense_cells_counts_stay_put():
+    """The scan's repair leaves the dense family alone: a reduced
+    Qwen2-7B cell of each kind on a 2 x 4 mesh counts what it counted
+    before the Mamba-2 scan ran on local shards (flops,
+    transcendentals, HBM and dot bytes, wire bytes by kind, the peak of
+    live bytes and the argument bytes)."""
+    cfg = reduced_config(get_config("qwen2-7b"))
+    mesh = fake_device_mesh((2, 4), ("data", "model"), "cpu")
+    for kind, want in DENSE_COUNTS.items():
+        shape, run = _cell(kind, seq=64, batch=4)
+        low, _ = dryrun.lower_cell(cfg, shape, mesh, run)
+        c = low.cost
+        assert (c.flops, c.transcendentals, c.hbm_bytes, c.dot_bytes,
+                c.collective_bytes(), low.peak_live_bytes,
+                low.argument_bytes) == want, kind
+
+
+# the reduced Qwen2-7B cells of _cell(kind, seq=64, batch=4) on a 2 x 4
+# "cpu" mesh, as the dense path counted them before the Mamba-2 scan ran
+# on local shards
+DENSE_COUNTS = {
+    "train": (38042255.0, 141394.0, 23967434.0, 3204096.0,
+              {"reduce-scatter": 351808.0, "all-gather": 582976.0,
+               "all-reduce": 3274.0}, 372844.0, 267012),
+    "prefill": (7709856.0, 41888.0, 4821116.0, 631296.0,
+                {"reduce-scatter": 61440.0, "all-gather": 135168.0,
+                 "all-reduce": 6.0}, 115280.0, 67008),
+    "decode": (140370.0, 522.0, 258394.0, 78336.0,
+               {"all-reduce": 2118.0, "all-gather": 384.0,
+                "reduce-scatter": 384.0}, 10256.0, 74712),
+}
+
+
+def test_groups_of_a_devices_heads():
+    """B and C's groups that a device's heads read: one group for heads
+    inside it, several whole ones, and a refusal where the heads would
+    split groups unevenly (the scan repeats each group alike)."""
+    assert ssm._groups_of(0, 8, 8, 1) == slice(0, 1)
+    assert ssm._groups_of(6, 2, 8, 1) == slice(0, 1)
+    assert ssm._groups_of(4, 4, 8, 4) == slice(2, 4)
+    assert ssm._groups_of(2, 1, 8, 8) == slice(2, 3)
+    with pytest.raises(ValueError, match="unevenly"):
+        ssm._groups_of(0, 6, 12, 3)
 
 
 def _leaves(tree):

@@ -163,6 +163,64 @@ def _decode_rank(rank, params_np, toks):
             "cache_shape": tuple(k.shape)}
 
 
+def _mamba_rank(rank, state_np, toks, batch_np):
+    """Reduced Mamba-2 on 2 x 4: a prefill that returns the cache and
+    MAMBA_DECODE_STEPS decode steps, then one train step."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.configs.run import RunConfig
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.params import (from_numpy, place,
+                                           train_state_from_numpy)
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.parallel.sharding import (DECODE_RULES, TRAIN_RULES,
+                                               make_rules)
+    from repro_torch.serve.step import make_decode_step, make_prefill_step
+    from repro_torch.train import step as step_mod
+
+    cfg = reduced_config(get_config("mamba2-780m"))
+    mesh = world.device_mesh((2, 4), ("data", "model"), "cpu")
+    out = {}
+    with torch.no_grad():
+        model = build_model(cfg, RunConfig(**SERVE_RUN_KW))
+        params = place(from_numpy(state_np["params"], device="cpu"), mesh,
+                       model.param_specs(make_rules(mesh, DECODE_RULES)))
+        tok, cache = make_prefill_step(model, max_len=toks.shape[1],
+                                       mesh=mesh)(
+            params, {"tokens": torch.from_numpy(toks)})
+        c = cache["ssm"]
+        out["placements"] = {k: str(tuple(v.placements))
+                             for k, v in c.items()}
+        out["cache"] = {k: v.full_tensor().numpy() for k, v in c.items()}
+        out["tokens"] = [tok.full_tensor()[:, 0].tolist()]
+        decode = make_decode_step(model, mesh=mesh)
+        for _ in range(MAMBA_DECODE_STEPS):
+            tok, cache = decode(params, tok, cache)
+            out["tokens"].append(tok.full_tensor()[:, 0].tolist())
+        out["decoded_placements"] = {
+            k: str(tuple(v.placements)) for k, v in cache["ssm"].items()}
+        out["decoded_cache"] = {k: v.full_tensor().numpy()
+                                for k, v in cache["ssm"].items()}
+
+    model = build_model(cfg, RunConfig(**RUN_KW))
+    specs = step_mod.train_state_specs(model, mesh,
+                                       make_rules(mesh, TRAIN_RULES))
+    state = place(train_state_from_numpy(state_np, device="cpu"), mesh,
+                  specs)
+    grads = {}
+    update = step_mod.adamw_update
+
+    def capture(g, *a, **kw):
+        grads["g"] = g
+        return update(g, *a, **kw)
+    step_mod.adamw_update = capture
+    batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+    new, metrics = step_mod.make_train_step(
+        model, OptConfig(**OPT_KW), mesh)(state, batch)
+    out.update(loss=float(metrics["loss"].full_tensor()),
+               params=_whole(new["params"]), grads=_whole(grads["g"]))
+    return out
+
+
 def _atom_rank(rank, blk):
     import torch.distributed as dist
 
@@ -366,6 +424,134 @@ def test_sharded_decode_matches_the_references_single_device(tmp_path):
     # the cache holds a quarter of the length and half the batch a rank
     assert got["cache_shape"] == (2, 8, 16, 2, 16)
     assert got["cache_local"] == (2, 4, 4, 2, 16)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 on 2 x 4: the SSD scan and the decode update on each rank's shards
+# ---------------------------------------------------------------------------
+
+MAMBA_DECODE_STEPS = 2
+
+
+@pytest.fixture(scope="module")
+def mamba_ranks(tmp_path_factory):
+    """The JAX package's reduced Mamba-2 state (seed 0), its prompts and a
+    train batch, and what ``_mamba_rank`` gives on a 2 x 4 world of CPU
+    ranks from them."""
+    import jax
+
+    from repro.configs import get_config, reduced_config
+    from repro.configs.run import RunConfig as JRun
+    from repro.models.model_zoo import build_model as j_build
+    from repro.train.step import init_train_state
+
+    model = j_build(reduced_config(get_config("mamba2-780m")),
+                    JRun(**RUN_KW))
+    state = init_train_state(model, jax.random.key(0))
+    state_np = jax.tree.map(np.asarray, state)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, 256, (8, 16)).astype(np.int32)
+    seq = rng.integers(0, 256, (8, 17)).astype(np.int32)
+    batch = {"tokens": seq[:, :-1].copy(), "targets": seq[:, 1:].copy()}
+    got = _spawn(_mamba_rank, 8, state_np, toks, batch,
+                 tmp_path=tmp_path_factory.mktemp("mamba"))
+    return state_np, toks, batch, got
+
+
+def test_sharded_mamba2_prefill_and_cache_match_the_references_single_device(
+        mamba_ranks):
+    """The scan and the decode update run on each rank's shards of batch
+    and heads: the prefill's token, its SSM cache, and the decode steps'
+    tokens and cache are the JAX package's single-device ones, and the
+    cache keeps the layout of its spec (``launch/specs.py``: the state's
+    batch over 'data', its heads over 'model'; the conv window's channels
+    over 'model')."""
+    import jax
+
+    from repro.configs import get_config, reduced_config
+    from repro.configs.run import RunConfig as JRun
+    from repro.models.model_zoo import build_model as j_build
+    from repro.serve.step import make_decode_step, make_prefill_step
+
+    state_np, toks, _, got = mamba_ranks
+    model = j_build(reduced_config(get_config("mamba2-780m")),
+                    JRun(**SERVE_RUN_KW))
+    params = jax.tree.map(jax.numpy.asarray, state_np["params"])
+    tok, cache = jax.jit(make_prefill_step(model, max_len=toks.shape[1]))(
+        params, {"tokens": toks})
+    want = [np.asarray(tok[:, 0]).tolist()]
+    want_cache = jax.tree.map(np.asarray, cache["ssm"])
+    decode = jax.jit(make_decode_step(model))
+    for _ in range(MAMBA_DECODE_STEPS):
+        tok, cache = decode(params, tok, cache)
+        want.append(np.asarray(tok[:, 0]).tolist())
+    assert got["tokens"] == want
+    for mine, ref in ((got["cache"], want_cache),
+                      (got["decoded_cache"],
+                       jax.tree.map(np.asarray, cache["ssm"]))):
+        for k in ("conv", "ssm"):
+            np.testing.assert_allclose(
+                mine[k], ref[k], rtol=0,
+                atol=LOSS_RTOL * max(1.0, np.abs(ref[k]).max()), err_msg=k)
+    for placed in (got["placements"], got["decoded_placements"]):
+        assert placed == {"conv": "(Shard(dim=1), Shard(dim=3))",
+                          "ssm": "(Shard(dim=1), Shard(dim=2))"}
+
+
+def test_sharded_mamba2_train_step_matches_the_ports_single_device(
+        mamba_ranks):
+    """One float32 train step on 2 x 4 against the port's own step on one
+    device with plain tensors (the JAX package's Mamba-2 gradients are
+    NaN, ROADMAP.md queue 3): the loss within the reference's rtol, the
+    gradients within the file's bounds (their norm, each leaf against its
+    largest), among them those of A_log, D and the groups' B and C
+    columns, which each rank reads for its own heads and rows only; the
+    new parameters at the reference's atol / rtol."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.configs.run import RunConfig
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.params import train_state_from_numpy
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train import step as step_mod
+
+    state_np, _, batch, got = mamba_ranks
+    model = build_model(reduced_config(get_config("mamba2-780m")),
+                        RunConfig(**RUN_KW))
+    grads = {}
+    update = step_mod.adamw_update
+
+    def capture(g, *a, **kw):
+        grads["g"] = g
+        return update(g, *a, **kw)
+    step_mod.adamw_update = capture
+    try:
+        new, metrics = step_mod.make_train_step(model, OptConfig(**OPT_KW))(
+            train_state_from_numpy(state_np, device="cpu"),
+            {k: torch.from_numpy(v) for k, v in batch.items()})
+    finally:
+        step_mod.adamw_update = update
+    np.testing.assert_allclose(got["loss"], float(metrics["loss"]),
+                               rtol=LOSS_RTOL)
+    want = dict(_flat(map_numpy(grads["g"])))
+    mine = dict(_flat(got["grads"]))
+    assert want.keys() == mine.keys()
+    norm = np.sqrt(sum(float(np.sum(np.square(v))) for v in want.values()))
+    norm_got = np.sqrt(sum(float(np.sum(np.square(v)))
+                           for v in mine.values()))
+    np.testing.assert_allclose(norm_got, norm, rtol=GRAD_NORM_TOL)
+    for k in want:
+        np.testing.assert_allclose(mine[k], want[k], rtol=0,
+                                   atol=GRAD_TOL * np.abs(want[k]).max(),
+                                   err_msg=k)
+    ref = dict(_flat(map_numpy(new["params"])))
+    for k, v in _flat(got["params"]):
+        np.testing.assert_allclose(v, ref[k], rtol=PARAM_RTOL,
+                                   atol=PARAM_ATOL, err_msg=k)
+
+
+def map_numpy(tree):
+    from repro_torch.models.params import map_tensors
+    return map_tensors(tree, lambda t: t.detach().numpy())
 
 
 # ---------------------------------------------------------------------------
