@@ -391,7 +391,8 @@ EXAMPLES_AT_ONCE = 3
 # run on each device's shards (models/ssm.py): Mamba-2's prefill and
 # Hymba's decode, its cheapest cell, on 16 x 16 (their 2 x 16 x 16 cells
 # take minutes of host time each: the CPU sweep, tools/dryrun_sweep.py,
-# holds them)
+# holds them), and Hymba's long_500k, whose two branches this torch
+# refused to sum until each was laid out as the residual (models/hybrid.py)
 DRYRUN_CELLS = (("qwen2-7b", "train_4k", False),
                 ("qwen2-7b", "prefill_32k", False),
                 ("qwen2-7b", "decode_32k", False),
@@ -399,7 +400,8 @@ DRYRUN_CELLS = (("qwen2-7b", "train_4k", False),
                 ("qwen2-1.5b", "decode_32k", False),
                 ("qwen2-72b", "decode_32k", True),
                 ("mamba2-780m", "prefill_32k", False),
-                ("hymba-1.5b", "decode_32k", False))
+                ("hymba-1.5b", "decode_32k", False),
+                ("hymba-1.5b", "long_500k", False))
 # the Mamba-2 prefill held against the card: its published widths cut to
 # DRYRUN_MAMBA_LAYERS layers, SERVE_B x SERVE_S tokens
 DRYRUN_MAMBA_LAYERS = 4
@@ -441,6 +443,14 @@ RANKS_OUTSIDE_SHARE = 1e-4
 # ranks).  Both checks take the weights of ranks_fan_in
 RANKS_GRAD_TOL = 1e-4
 RANKS_DECODE_B, RANKS_DECODE_PROMPT, RANKS_DECODE_STEPS = 2, 64, 4
+# Moonlight's published widths (d_model 2048, 64 experts of d_ff 1408,
+# top-6, vocab 163840; 1.8e9 parameters) cut to RANKS_LAYERS layers: one
+# float32 step of RANKS_MOE_ROWS x RANKS_SEQ tokens on a (2, 1) mesh, so
+# that each rank routes its own row (the (1, 2) step above splits no
+# batch), its loss and every gradient leaf, the router's named, against
+# one rank at the bounds above
+RANKS_MOE_ROWS = 2
+RANKS_ROUTER_LEAF = "['layers']['moe']['router']"
 RANKS_TIMEOUT_S, RANKS_PHASE_S = 600.0, 240.0
 # the jobs on a mesh of ranks, a step after the ranks phase, in its world,
 # at its model and weights (ranks_fan_in): make_job on (1, 2) trains
@@ -3808,16 +3818,18 @@ def ranks_fan_in(torch, params, cfg) -> None:
                     lambda w: w.mul_(scale) if w.dim() >= 3 else w)
 
 
-def ranks_train_rank(rank, dev_name, cfg, seq):
-    """A rank of the ranks phase's train check (weights:
-    ``ranks_fan_in``).  Rank 0 first runs the
-    step on its own (one rank, no mesh), keeps the gradients and the new
-    parameters on the host and frees the card; then both ranks build the
-    same state from the same seed, place it on the (1, 2) mesh and run
-    the step there.  Returns, on rank 0, the two losses, and per leaf the
-    gradients' largest difference over their largest magnitude, the new
+def ranks_train_rank(rank, dev_name, cfg, seq, rows=1, shape=(1, 2),
+                     params=True):
+    """A rank of the ranks phase's train checks (weights:
+    ``ranks_fan_in``) on ``rows`` x ``seq`` tokens.  Rank 0 first runs the
+    step on its own (one rank, no mesh), keeps the gradients (and with
+    ``params`` the new parameters) on the host and frees the card; then
+    both ranks build the same state from the same seed, place it on the
+    ``shape`` ("data", "model") mesh and run the step there.  Returns, on
+    rank 0, the two losses, and per leaf the gradients' largest
+    difference over their largest magnitude (with ``params``, the new
     parameters' largest difference and their elements outside the
-    reference's tolerance; and every rank's peaks, state bytes and step
+    reference's tolerance); and every rank's peaks, state bytes and step
     ms."""
     import torch
     import torch.distributed as dist
@@ -3831,10 +3843,11 @@ def ranks_train_rank(rank, dev_name, cfg, seq):
     from torch.utils._pytree import keystr, tree_flatten_with_path
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     dev = torch.device(dev_name)
     model = build_model(cfg, RunConfig(**RANKS_TRAIN_RUN))
     opt = OptConfig(**RANKS_OPT)
-    toks = torch.randint(0, cfg.vocab_size, (1, seq + 1),
+    toks = torch.randint(0, cfg.vocab_size, (rows, seq + 1),
                          generator=torch.Generator(dev).manual_seed(1),
                          device=dev, dtype=torch.int32)
     batch = {"tokens": toks[:, :-1].contiguous(),
@@ -3866,14 +3879,15 @@ def ranks_train_rank(rank, dev_name, cfg, seq):
         (new, met), out["one_rank_ms"] = timed(
             lambda: step_mod.make_train_step(model, opt)(state(), batch))
         out["one_rank_loss"] = float(met["loss"])
-        ref = map_tensors(new["params"], lambda t: t.detach().cpu())
+        ref = map_tensors(new["params"], lambda t: t.detach().cpu()) \
+            if params else None
         ref_g = map_tensors(grads.pop("g"), lambda t: t.detach().cpu())
         out["one_rank_peak"] = _peak(torch, dev)
         del new, met
         _free(torch, dev)
     dist.barrier()
     _peak(torch, dev, reset=True)
-    mesh = world.device_mesh((1, 2), ("data", "model"), dev)
+    mesh = world.device_mesh(shape, ("data", "model"), dev)
     specs = step_mod.train_state_specs(model, mesh,
                                        make_rules(mesh, TRAIN_RULES))
     placed = place(state(), mesh, specs)
@@ -3889,29 +3903,49 @@ def ranks_train_rank(rank, dev_name, cfg, seq):
     def named(tree):
         return {keystr(k): t for k, t in tree_flatten_with_path(tree)[0]}
     leaves, gs = {}, named(grads["g"])
+    news = named(new["params"])
     if rank == 0:
-        ref, ref_g = named(ref), named(ref_g)
-    for name, got in named(new["params"]).items():
-        whole, g = got.full_tensor(), gs[name].full_tensor()
+        ref_g = named(ref_g)
+        ref = named(ref) if params else None
+    for name in gs:
+        g = gs[name].full_tensor()
+        whole = news[name].full_tensor() if params else None
         if rank == 0:
-            want, want_g = ref[name].to(dev), ref_g[name].to(dev)
-            diff = (whole - want).abs()
+            want_g = ref_g[name].to(dev)
             leaves[name] = {
-                "elements": whole.numel(),
-                "max_abs_diff": float(diff.max()),
-                "outside": int((diff > RANKS_PARAM_ATOL + RANKS_PARAM_RTOL
-                                * want.abs()).sum()),
+                "elements": g.numel(),
                 "grad_rel": float((g - want_g).abs().max()
                                   / want_g.abs().max().clamp_min(1e-30)),
                 "grad_sign_flips": int(((g > 0) != (want_g > 0)).sum())}
+            if params:
+                want = ref[name].to(dev)
+                diff = (whole - want).abs()
+                leaves[name].update(
+                    max_abs_diff=float(diff.max()),
+                    outside=int((diff > RANKS_PARAM_ATOL + RANKS_PARAM_RTOL
+                                 * want.abs()).sum()))
         del whole, g
+    step_mod.adamw_update = update
     every = [None] * dist.get_world_size()
     dist.all_gather_object(every, {"step_peak": peak,
                                    "place_peak": place_peak,
                                    "state_bytes": state_bytes,
-                                   "step_ms": step_ms, "loss": out["loss"]})
+                                   "step_ms": step_ms, "loss": out["loss"],
+                                   "seconds": time.perf_counter() - t_start})
     out.update(leaves=leaves, ranks=every)
     return out
+
+
+def ranks_train_checks(rank, dev_name, checks):
+    """The ranks phase's train checks in one world: ``ranks_train_rank``
+    for each tuple of its arguments after ``dev_name`` in ``checks``, the
+    card freed between them."""
+    import torch
+    outs = []
+    for args in checks:
+        outs.append(ranks_train_rank(rank, dev_name, *args))
+        _free(torch, torch.device(dev_name))
+    return outs
 
 
 def ranks_decode_rank(rank, dev_name, cfg, batch, prompt, steps):
@@ -4030,7 +4064,10 @@ def phase_ranks(torch, np, calib, rows, dev=None) -> list:
     same step on one rank, run first and freed: the loss within
     RANKS_LOSS_RTOL, the parameters' largest difference and the share of
     their elements outside the reference's atol / rtol (at most
-    RANKS_OUTSIDE_SHARE); (b) the same widths' prefill and decode steps on
+    RANKS_OUTSIDE_SHARE); (a') Moonlight's widths cut alike: one float32
+    train step of two rows on a (2, 1) mesh, each rank routing its own,
+    against one rank: the loss and every gradient leaf, the router's
+    named; (b) the same widths' prefill and decode steps on
     (1, 2) under the decode rules: tokens identical to one rank's; (c) the
     collective cell's profile, at a tenth of its wire bytes (the
     per-sample run's cut: gloo moved the whole wire through the host in
@@ -4061,32 +4098,49 @@ def phase_ranks(torch, np, calib, rows, dev=None) -> list:
                               timeout=RANKS_TIMEOUT_S)
             return out, time.perf_counter() - t0
 
-    # (a) the train step
-    got, wall = run(ranks_train_rank, cfg, RANKS_SEQ)
-    rel = abs(got["loss"] - got["one_rank_loss"]) / abs(got["one_rank_loss"])
+    def train_check(step, model, got, **fields):
+        rel = abs(got["loss"] - got["one_rank_loss"]) / \
+            abs(got["one_rank_loss"])
+        leaves = got["leaves"]
+        emit("ranks", step=step, model=model.name, layers=model.num_layers,
+             seq=RANKS_SEQ, loss=got["loss"],
+             one_rank_loss=got["one_rank_loss"], loss_rel=rel, **fields,
+             leaves=leaves, one_rank_ms=got["one_rank_ms"],
+             one_rank_peak=got["one_rank_peak"], ranks=got["ranks"],
+             seconds=max(r["seconds"] for r in got["ranks"]),
+             world_wall_s=wall)
+        if not rel <= RANKS_LOSS_RTOL or any(
+                r["loss"] != got["loss"] for r in got["ranks"]):
+            fail(f"ranks {step}: loss {got['ranks']} against one rank's "
+                 f"{got['one_rank_loss']} ({rel:.3g} relative)")
+        bad = {k: v["grad_rel"] for k, v in leaves.items()
+               if not v["grad_rel"] <= RANKS_GRAD_TOL}
+        if bad:
+            fail(f"ranks {step}: gradients off one rank's: {bad}")
+
+    # (a) the train step and (a') Moonlight's, in one world
+    moe = ranks_moonlight_cut()
+    (got, got_moe), wall = run(ranks_train_checks, (
+        (cfg, RANKS_SEQ),
+        (moe, RANKS_SEQ, RANKS_MOE_ROWS, (2, 1), False)))
     leaves = got["leaves"]
     outside = sum(v["outside"] for v in leaves.values())
     elements = sum(v["elements"] for v in leaves.values())
     share = outside / elements
-    emit("ranks", step="train", model=cfg.name, layers=cfg.num_layers,
-         seq=RANKS_SEQ, loss=got["loss"], one_rank_loss=got["one_rank_loss"],
-         loss_rel=rel, max_abs_param_diff=max(
-             v["max_abs_diff"] for v in leaves.values()),
-         outside=outside, elements=elements, outside_share=share,
-         bound_share=RANKS_OUTSIDE_SHARE, leaves=leaves,
-         one_rank_ms=got["one_rank_ms"], one_rank_peak=got["one_rank_peak"],
-         ranks=got["ranks"], wall_s=wall)
-    if not rel <= RANKS_LOSS_RTOL or any(
-            r["loss"] != got["loss"] for r in got["ranks"]):
-        fail(f"ranks train: loss {got['ranks']} against one rank's "
-             f"{got['one_rank_loss']} ({rel:.3g} relative)")
+    train_check("train", cfg, got, max_abs_param_diff=max(
+        v["max_abs_diff"] for v in leaves.values()),
+        outside=outside, elements=elements, outside_share=share,
+        bound_share=RANKS_OUTSIDE_SHARE)
     if share > RANKS_OUTSIDE_SHARE:
         fail(f"ranks train: {outside} of {elements} parameters outside "
              "the reference's tolerance")
-    bad = {k: v["grad_rel"] for k, v in leaves.items()
-           if not v["grad_rel"] <= RANKS_GRAD_TOL}
-    if bad:
-        fail(f"ranks train: gradients off one rank's: {bad}")
+
+    # (a') Moonlight on (2, 1): each rank routes its own row, so the
+    # router's gradient is a sum over the ranks
+    train_check("moe_train", moe, got_moe, rows=RANKS_MOE_ROWS,
+                mesh=[2, 1], router_grad_rel=got_moe["leaves"][
+                    RANKS_ROUTER_LEAF]["grad_rel"],
+                grad_tol=RANKS_GRAD_TOL)
 
     # (b) prefill and decode
     got, wall = run(ranks_decode_rank, cfg, RANKS_DECODE_B,
@@ -4363,6 +4417,15 @@ def ranks_qwen2_cut():
     import dataclasses
     from repro_torch.configs import get_config
     return dataclasses.replace(get_config("qwen2-7b"),
+                               num_layers=RANKS_LAYERS)
+
+
+def ranks_moonlight_cut():
+    """Moonlight-16B-A3B at its published widths cut to RANKS_LAYERS
+    layers."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("moonshot-v1-16b-a3b"),
                                num_layers=RANKS_LAYERS)
 
 

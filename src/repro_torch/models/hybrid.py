@@ -21,7 +21,7 @@ from repro_torch.models.layers import (attention, def_attention, def_mlp,
 from repro_torch.models.params import PDef, stack_pdefs
 from repro_torch.models.transformer import (_attn_run, _stack_layers,
                                             init_attn_cache)
-from repro_torch.parallel.sharding import shard
+from repro_torch.parallel.sharding import match_placements, shard
 
 
 # ---------------------------------------------------------------------------
@@ -101,6 +101,14 @@ def make_hybrid_block(cfg: ModelConfig, run: RunConfig):
                                    cache=acl, decode=decode)
         ssm_out, s_nc = ssm_lib.mamba2_block(pl["mamba"], h, cfg=cfg,
                                              cache=scl, decode=decode)
+        # each branch laid out as the residual stream before its norm (no
+        # counterpart in the reference, whose GSPMD lays the sum out): the
+        # two come in crossed layouts (at long_500k attention's partial
+        # over 'data' and split over 'model', the SSM's the other way
+        # round), and torch 2.11's propagation picks for the norms and the
+        # sum a Shard -> Partial that it cannot make
+        attn_out = match_placements(attn_out, x)
+        ssm_out = match_placements(ssm_out, x)
         fused = 0.5 * (rmsnorm(pl["norm_attn_out"], attn_out, cfg.norm_eps) +
                        rmsnorm(pl["norm_ssm_out"], ssm_out, cfg.norm_eps))
         x = x + fused

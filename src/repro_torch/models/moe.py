@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import def_mlp, mlp
 from repro_torch.models.params import PDef
-from repro_torch.parallel.sharding import shard, shard_local
+from repro_torch.parallel.sharding import Along, shard, shard_local
 
 
 def def_moe(cfg: ModelConfig) -> Dict[str, Any]:
@@ -74,11 +74,13 @@ def _route(router, x, cfg: ModelConfig):
 
     # --- position within each expert's capacity buffer (per group) ---------
     # ``jax.nn.one_hot``'s comparison: ``F.one_hot`` reads the indices'
-    # range first (a sync on a card, and nothing to read on meta tensors)
+    # range first (a sync on a card, and nothing to read on meta tensors);
+    # int32 as the reference's, and so the scan (torch's integer cumsum
+    # widens to int64 unless told)
     oh = (expert_idx[..., None] == torch.arange(
-        E, device=expert_idx.device)).long()                 # [B,S,K,E]
+        E, device=expert_idx.device)).to(torch.int32)        # [B,S,K,E]
     ohf = oh.reshape(B, S * K, E)                            # slot-major order
-    pos_in_e = torch.cumsum(ohf, dim=1) - ohf                # [B,S*K,E]
+    pos_in_e = torch.cumsum(ohf, dim=1, dtype=torch.int32) - ohf  # [B,S*K,E]
     pos = torch.gather(pos_in_e.reshape(B, S, K, E), -1,
                        expert_idx[..., None])[..., 0]        # [B,S,K]
     keep = pos < C                                           # over-capacity drop
@@ -134,12 +136,14 @@ def moe_block(p, x, *, cfg: ModelConfig
     """x: [B, S, D] -> (out [B, S, D], aux losses).  On DTensors the
     routing, dispatch and combine run on each device's rows
     (``shard_local``: DTensor has no layout for their scatters and
-    gathers), the expert products on DTensors sharded by expert."""
+    gathers; every device reads the router whole, so its gradient is
+    summed over the devices that split the rows), the expert products on
+    DTensors sharded by expert."""
     m = cfg.moe
     E, K = m.num_experts, m.top_k
     gathered, slot, gate_vals, stats = shard_local(
-        lambda x_, r: _dispatch(r, x_, cfg), x, dims=(0,),
-        whole=(p["router"],))
+        lambda x_, r: _dispatch(r, x_, cfg), x,
+        Along(p["router"], (None,)), dims=(0,))
     logits, probs, keep, oh = stats
     gathered = shard(gathered, "batch", "act_experts", "expert_cap", None)
 

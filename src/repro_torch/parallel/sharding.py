@@ -506,25 +506,25 @@ def seq_product(x, w):
     return _GatheredGrad.apply(y) if sharded else y
 
 
-def shard_local(fn, x, *others, dims: Tuple[int, ...], whole=()):
-    """``fn(x, *others, *whole)`` run on each device's shards, where the
-    function is independent along ``dims`` (batch and heads of an
-    attention, the rows of a routing): ``x`` and the DTensors of
-    ``others`` are laid out as ``x`` is along those dims (an ``Along``
-    of ``others`` along its own dims) and replicated along the others,
-    those of ``whole`` replicated (``local_like``: a collective where they
-    were not), ``fn`` runs on their local shards with no DTensor in
+def shard_local(fn, x, *others, dims: Tuple[int, ...]):
+    """``fn(x, *others)`` run on each device's shards, where the function
+    is independent along ``dims`` (batch and heads of an attention, the
+    rows of a routing): ``x`` and the DTensors of ``others`` are laid out
+    as ``x`` is along those dims (an ``Along`` of ``others`` along its own
+    dims: a weight read whole by every row is ``Along(w, (None,) *
+    len(dims))``, its gradient summed over the devices that split ``x``)
+    and replicated along the others (``local_like``: a collective where
+    they were not), ``fn`` runs on their local shards with no DTensor in
     sight, and each tensor of its result (a tensor, an ``Along``, or
     nested tuples of them) is laid out as ``x``'s shards were (an
     ``Along``'s along its dims).  Plain tensors go to ``fn`` as they
     are, and an ``Along`` as its tensor."""
     if not is_dtensor(x):
-        return _unwrapped(fn(x, *_unwrapped(others), *whole))
+        return _unwrapped(fn(x, *_unwrapped(others)))
     laid = [_ContiguousGrad.apply(local_like(t.tensor, x, dims, t.dims)
                                   if isinstance(t, Along) else
                                   local_like(t, x, dims))
             for t in (x, *others)]
-    laid += [_ContiguousGrad.apply(local_like(t, x, ())) for t in whole]
     return _wrapped(fn(*laid), x.device_mesh, tuple(x.placements), dims)
 
 

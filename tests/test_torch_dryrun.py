@@ -16,6 +16,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -345,6 +346,130 @@ DENSE_COUNTS = {
                {"all-reduce": 2118.0, "all-gather": 384.0,
                 "reduce-scatter": 384.0}, 10256.0, 74712),
 }
+
+
+# ---------------------------------------------------------------------------
+# MoE: the router's gradient summed over the devices that split the batch
+# ---------------------------------------------------------------------------
+
+# the reduced Moonlight train cell of _cell("train", seq=32, batch=4,
+# loss_chunk=0) on a "cpu" mesh, as counted while each device kept its own
+# rows' share of the router's gradient: flops, transcendentals, dot bytes,
+# wire bytes by mesh axis
+MOE_TRAIN_BEFORE = {
+    (2, 1): (77357894.0, 244258.0, 4071424.0, {"data": 627092.0}),
+    (2, 2): (38924203.0, 131170.0, 2277376.0,
+             {"model": 305924.0, "data": 348052.0}),
+}
+
+
+@pytest.mark.parametrize("shape", list(MOE_TRAIN_BEFORE),
+                         ids=["2x1", "2x2"])
+def test_moe_train_cell_reduces_the_routers_gradient_over_data(shape):
+    """Every device routes its own rows with the whole router, so the
+    router's gradient is summed over 'data': one all-reduce a layer of
+    the router as the step reads it (the compute dtype's [D, E]; 'model'
+    splits the sequence, which each device gathers before it routes, so
+    the router is whole there), by the walker's ring model 2 (n - 1) / n
+    of its bytes.  Nothing else moves: the flops, the dot bytes and the
+    other wire are what they were without the sum."""
+    cfg = reduced_config(get_config("moonshot-v1-16b-a3b"))
+    shape_, run = _cell("train", seq=32, batch=4, loss_chunk=0)
+    mesh = fake_device_mesh(shape, ("data", "model"), "cpu")
+    low, meta = dryrun.lower_cell(cfg, shape_, mesh, run)
+    d, e = cfg.d_model, cfg.moe.num_experts
+    item = torch.empty((), dtype=run.cdtype).element_size()
+    n = shape[0]
+    router = [c for c in low.cost.collectives
+              if c.kind == "all-reduce" and c.shape == str((d, e))]
+    assert len(router) == cfg.num_layers
+    assert all(c.group_size == n and c.stride == shape[1] for c in router)
+    each = 2 * (n - 1) / n * d * e * item
+    assert all(c.total_bytes == each for c in router)
+    flops, trans, dot, wire = MOE_TRAIN_BEFORE[shape]
+    c = low.cost
+    assert (c.flops, c.transcendentals, c.dot_bytes) == (flops, trans, dot)
+    want = dict(wire, data=wire["data"] + cfg.num_layers * each)
+    assert dryrun.analyze(low, mesh, meta)["walker"][
+        "collective_by_axis"] == want
+
+
+# ---------------------------------------------------------------------------
+# Hymba: both branches laid out as the residual stream before their norms
+# ---------------------------------------------------------------------------
+
+def _hybrid_norm_inputs(monkeypatch):
+    """``hybrid.rmsnorm`` wrapped to record its input's placements: four
+    calls a block (the block input's norm, the attention branch's, the
+    SSM branch's, the MLP's)."""
+    from repro_torch.models import hybrid
+    seen = []
+    inner = hybrid.rmsnorm
+
+    def recorded(p, x, eps):
+        seen.append(tuple(getattr(x, "placements", ())))
+        return inner(p, x, eps)
+    monkeypatch.setattr(hybrid, "rmsnorm", recorded)
+    return seen
+
+
+@pytest.mark.parametrize("shape_name", ["long_500k", "decode_32k",
+                                        "prefill_32k", "train_4k"])
+def test_hymba_branches_reach_their_sum_in_the_residuals_layout(
+        shape_name, monkeypatch):
+    """On a 2 x 2 mesh under each cell's rules (``LONG_DECODE_RULES`` for
+    long_500k, ``DECODE_RULES`` for decode), the attention and SSM
+    branches reach their norms and their sum laid out as the block's
+    input, the residual stream, with no partial sum left: DTensor has no
+    layout to choose there.  Left to choose, it took crossed layouts
+    (long_500k at full width: attention (Partial, Shard(2)), the SSM
+    (Shard(2), Partial)), and torch 2.11, the card's, refused the
+    Shard(2) -> Partial(sum) it then planned.  That refusal shows only
+    under torch 2.11, on the card (``chip_smoke.py``'s dry-run phase runs
+    Hymba's long_500k); here the layouts are pinned."""
+    from torch.distributed.tensor import Partial
+    cfg = reduced_config(get_config("hymba-1.5b"))
+    shape = dataclasses.replace(
+        SHAPES[shape_name], seq_len=64,
+        global_batch=1 if shape_name == "long_500k" else 4)
+    run = dataclasses.replace(dryrun._run_config(shape), **{
+        "loss_chunk": 16, "block_q": 16, "block_kv": 32,
+        "blocked_threshold": 32})
+    mesh = fake_device_mesh((2, 2), ("data", "model"), "cpu")
+    seen = _hybrid_norm_inputs(monkeypatch)
+    dryrun.lower_cell(cfg, shape, mesh, run)
+    assert seen and len(seen) % 4 == 0
+    for i in range(0, len(seen), 4):
+        x, attn, ssm_out, _ = seen[i:i + 4]
+        assert attn == ssm_out == x, (i, x, attn, ssm_out)
+        assert not any(isinstance(p, Partial) for p in x)
+
+
+def test_hymba_plain_block_is_the_same_computation(monkeypatch):
+    """Plain tensors (one device, serving without a mesh) go through the
+    branches' lay-out untouched: the very tensors come back, and the
+    forward is bit for bit the one without it."""
+    from repro_torch.models import hybrid
+    from repro_torch.configs.run import RunConfig
+    cfg = reduced_config(get_config("hymba-1.5b"))
+    model = build_model(cfg, RunConfig(param_dtype="float32",
+                                       compute_dtype="float32"))
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 24)).astype(np.int32))
+    laid = hybrid.match_placements
+    same = []
+
+    def recorded(t, like):
+        out = laid(t, like)
+        same.append(out is t)
+        return out
+    monkeypatch.setattr(hybrid, "match_placements", recorded)
+    got = model.forward(params, {"tokens": toks})[0]
+    assert same and all(same)
+    monkeypatch.setattr(hybrid, "match_placements", lambda t, like: t)
+    want = model.forward(params, {"tokens": toks})[0]
+    assert torch.equal(got, want)
 
 
 def test_groups_of_a_devices_heads():

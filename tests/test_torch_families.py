@@ -394,6 +394,37 @@ def test_moe_block_matches(case):
         assert tied.any()
 
 
+@pytest.mark.parametrize("case", sorted(MOE_CASES))
+def test_capacity_scan_runs_in_int32_as_the_references(case):
+    """The one-hot and its cumulative count over the slots are int32, as
+    the reference's (``moe.py:62-64``; torch's integer ``cumsum`` widens
+    to int64 unless told), and the buffer positions are the reference's
+    exactly."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    cfg, j_cfg, jp, x = _moe_inputs(case)
+    scans = []
+
+    class Scans(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.overloadpacket is torch.ops.aten.cumsum:
+                scans.append((args[0].dtype, out.dtype))
+            return out
+    with Scans():
+        _, _, _, idx, pos, keep, oh = tmoe._route(
+            torch.from_numpy(jp["router"]), torch.from_numpy(x), cfg)
+    assert scans == [(torch.int32, torch.int32)]
+    assert oh.dtype == pos.dtype == torch.int32
+    m = j_cfg.moe
+    B, S, _ = x.shape
+    j_oh = jax.nn.one_hot(jnp.asarray(idx.numpy()), m.num_experts,
+                          dtype=jnp.int32)
+    ohf = j_oh.reshape(B, S * m.top_k, m.num_experts)
+    j_pos = jnp.sum((jnp.cumsum(ohf, axis=1) - ohf).reshape(j_oh.shape)
+                    * j_oh, axis=-1)
+    assert np.array_equal(pos.numpy(), np.asarray(j_pos))
+
+
 @pytest.mark.parametrize("S", [1, 2, 7, 2048])
 @pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e",
                                   "moonshot-v1-16b-a3b"])

@@ -221,6 +221,40 @@ def _mamba_rank(rank, state_np, toks, batch_np):
     return out
 
 
+def _moe_rank(rank, arch, shape, state_np, batch_np):
+    """Reduced ``arch`` (an MoE config) on a ``shape`` ("data", "model")
+    mesh: one float32 train step; its loss, aux losses and whole
+    gradients."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.configs.run import RunConfig
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.params import place, train_state_from_numpy
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.parallel.sharding import TRAIN_RULES, make_rules
+    from repro_torch.train import step as step_mod
+
+    model = build_model(reduced_config(get_config(arch)),
+                        RunConfig(**RUN_KW))
+    mesh = world.device_mesh(shape, ("data", "model"), "cpu")
+    state = place(train_state_from_numpy(state_np, device="cpu"), mesh,
+                  step_mod.train_state_specs(model, mesh,
+                                             make_rules(mesh, TRAIN_RULES)))
+    grads = {}
+    update = step_mod.adamw_update
+
+    def capture(g, *a, **kw):
+        grads["g"] = g
+        return update(g, *a, **kw)
+    step_mod.adamw_update = capture
+    batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+    _, metrics = step_mod.make_train_step(
+        model, OptConfig(**OPT_KW), mesh)(state, batch)
+    return {"metrics": {k: float(v.full_tensor()) for k, v in
+                        metrics.items() if k == "loss" or
+                        k.startswith("moe_")},
+            "grads": _whole(grads["g"])}
+
+
 def _atom_rank(rank, blk):
     import torch.distributed as dist
 
@@ -386,6 +420,77 @@ def test_sharded_train_step_matches_the_references_single_device(tmp_path):
         outside += int((~close).sum())
         total += close.size
     assert outside <= OUTSIDE_SHARE * total, (outside, total)
+
+
+# ---------------------------------------------------------------------------
+# MoE on a mesh that splits the batch: the router's gradient
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ["moonshot-v1-16b-a3b", "llama4-scout-17b-a16e"]
+
+
+@pytest.fixture(scope="module")
+def moe_references():
+    """Per MoE architecture, the JAX package's reduced state (seed 0), a
+    train batch of 4 rows, and its single-device step's metrics and
+    gradients, made once."""
+    refs = {}
+
+    def get(arch):
+        if arch not in refs:
+            import jax
+
+            from repro.configs import get_config, reduced_config
+            from repro.configs.run import RunConfig as JRun
+            from repro.models.model_zoo import build_model as j_build
+            from repro.optim import adamw as jadamw
+            from repro.train.step import init_train_state, make_train_step
+
+            model = j_build(reduced_config(get_config(arch)), JRun(**RUN_KW))
+            state = init_train_state(model, jax.random.key(0))
+            seq = np.random.default_rng(0).integers(0, 256, (4, 17)) \
+                .astype(np.int32)
+            batch = {"tokens": seq[:, :-1].copy(),
+                     "targets": seq[:, 1:].copy()}
+            _, metrics = jax.jit(make_train_step(
+                model, jadamw.OptConfig(**OPT_KW)))(state, batch)
+            refs[arch] = (jax.tree.map(np.asarray, state), batch,
+                          {k: float(v) for k, v in metrics.items()},
+                          dict(_flat(jax.tree.map(
+                              np.asarray, _j_grads(model, state, batch)))))
+        return refs[arch]
+    return get
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (2, 2)], ids=["2x1", "2x2"])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_sharded_moe_train_step_matches_the_references_single_device(
+        arch, shape, moe_references, tmp_path):
+    """One float32 train step of reduced ``arch`` on a mesh whose 'data'
+    axis splits the batch (each rank routes its own rows, the routing
+    groups), against the JAX package's single-device step from the same
+    state: the loss and the aux losses within the reference's rtol, each
+    gradient leaf within the file's bound of its largest, the router's
+    among them.  The router is read whole by every rank's rows, so its
+    gradient is a sum over the ranks; kept a rank's own it was 60% off
+    (``tools/moe_router_grad_witness.py``)."""
+    state_np, batch, j_metrics, j_grads = moe_references(arch)
+
+    got = _spawn(_moe_rank, shape[0] * shape[1], arch, shape, state_np,
+                 batch, tmp_path=tmp_path)
+
+    assert set(got["metrics"]) == {"loss", "moe_load_balance",
+                                   "moe_router_z", "moe_drop_fraction"}
+    for k, v in got["metrics"].items():
+        np.testing.assert_allclose(v, j_metrics[k], rtol=LOSS_RTOL,
+                                   err_msg=k)
+    mine = dict(_flat(got["grads"]))
+    assert mine.keys() == j_grads.keys()
+    assert "/layers/moe/router" in mine
+    for k in j_grads:
+        np.testing.assert_allclose(mine[k], j_grads[k], rtol=0,
+                                   atol=GRAD_TOL * np.abs(j_grads[k]).max(),
+                                   err_msg=k)
 
 
 def _j_grads(model, state, batch):

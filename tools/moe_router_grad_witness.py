@@ -8,9 +8,11 @@ on a (2, 1) ``("data", "model")`` mesh of two gloo CPU ranks
 (``launch.world.spawn``); prints one JSON line: the largest magnitude of
 the router's gradient on one device and the largest difference of rank
 0's whole gradient from it, absolute and over that magnitude.  The
-routing runs on each rank's rows (``sharding.shard_local``), the router
-weight passed whole: a gradient that holds only one rank's rows shows as
-a difference near the share of the other rank's.
+routing runs on each rank's rows (``sharding.shard_local``), every rank
+reading the router whole (an ``Along`` of no dim), so its gradient is a
+sum over the ranks: a gradient that held only one rank's rows would show
+as a difference near the share of the other rank's (``relative`` 0.605),
+the sum as the float32 floor.
 
     python3 tools/moe_router_grad_witness.py [--store DIR]
 """
