@@ -1573,7 +1573,8 @@ def phase_collective(torch, np, calib, build_info):
     seg_ptxas = {k: ptxas_numbers(v["ptxas"]) for k, v in build_info.items()
                  if "segment_kernel" in k}
     emit("collective", step="segment_registers", ptxas=seg_ptxas)
-    if len(seg_ptxas) != len(sk.TILES) or any(
+    # segment_kernel<T, false> and <T, true> (timed) at each tile
+    if len(seg_ptxas) != 2 * len(sk.TILES) or any(
             p["spill_bytes"] or not p["registers"] or p["registers"] > 255
             for p in seg_ptxas.values()):
         fail(f"segment kernel: registers or spills {seg_ptxas}")

@@ -58,6 +58,7 @@ from repro_torch.core.schedule import (CompiledSchedule, FusedSegment,
                                        SegmentRunner, compile_schedule)
 from repro_torch.device import DeviceLike, resolve, same_device, sync
 from repro_torch.kernels.segment.kernel import TILES as SEGMENT_TILES
+from repro_torch.obs import spans
 
 #: fleet backends ``emulate_many``/``run_fleet`` accept (see
 #: ``repro_torch.fleet``)
@@ -591,32 +592,34 @@ class Emulator:
         emulated_ici = 0.0
         quant = sched.collective_quant
         t_start = time.perf_counter()
-        for step in sched.steps:
-            if isinstance(step, FusedSegment):
-                t0 = time.perf_counter()
-                dispatched = self._segments.run(step)  # ONE dispatch+sync
-                dt = time.perf_counter() - t0
-                dispatches += int(dispatched)
-                if step.mesh_bound:
-                    # one executed wire leg per collective-bearing row —
-                    # the same granularity the barrier fallback counts at
-                    coll_dispatches += int((step.table[:, 2] > 0).sum())
-                    emulated_ici += quant.emulated_bytes(
-                        step.collective_iters)
-                # apportion the segment's wall time across its rows so
-                # per_sample_s keeps one entry per executed sample
-                per_sample.extend([dt / step.n_rows] * step.n_rows)
-                if verify:
-                    for rr in step.rows:
-                        consumed = consumed.add(rr)
-            else:
-                consumed, d, c, e = self._run_per_sample(
-                    step.resources, step.count, flops_scale,
-                    storage_scale, mem_scale, consumed, per_sample,
-                    verify)
-                dispatches += d
-                coll_dispatches += c
-                emulated_ici += e
+        with spans.span("replay"):
+            for step in sched.steps:
+                if isinstance(step, FusedSegment):
+                    t0 = time.perf_counter()
+                    dispatched = self._segments.run(step)  # ONE dispatch+sync
+                    dt = time.perf_counter() - t0
+                    dispatches += int(dispatched)
+                    if step.mesh_bound:
+                        # one executed wire leg per collective-bearing row —
+                        # the same granularity the barrier fallback counts at
+                        coll_dispatches += int((step.table[:, 2] > 0).sum())
+                        emulated_ici += quant.emulated_bytes(
+                            step.collective_iters)
+                    # apportion the segment's wall time across its rows so
+                    # per_sample_s keeps one entry per executed sample
+                    per_sample.extend([dt / step.n_rows] * step.n_rows)
+                    if verify:
+                        with spans.span("replay.fold"):
+                            for rr in step.rows:
+                                consumed = consumed.add(rr)
+                else:
+                    consumed, d, c, e = self._run_per_sample(
+                        step.resources, step.count, flops_scale,
+                        storage_scale, mem_scale, consumed, per_sample,
+                        verify)
+                    dispatches += d
+                    coll_dispatches += c
+                    emulated_ici += e
         ttc = time.perf_counter() - t_start
         return EmulationReport(command=command, ttc_s=ttc,
                                n_samples=len(per_sample), consumed=consumed,
@@ -628,43 +631,55 @@ class Emulator:
     def emulate(self, profile: SynapseProfile, *, flops_scale: float = 1.0,
                 storage_scale: float = 1.0, mem_scale: float = 1.0,
                 verify: bool = True, fused: bool = True) -> EmulationReport:
-        runs = _collapse(profile.samples)
-        use_fused = fused and self._fusable
-        t_start = time.perf_counter()
-        if use_fused:
-            sched = compile_schedule(runs, compute=self.compute,
-                                     memory=self.memory,
-                                     collective=self.collective,
-                                     flops_scale=flops_scale,
-                                     mem_scale=mem_scale, speed=self.speed)
-            rep = self.replay(sched, command=profile.command,
-                              planned=profile.totals,
-                              flops_scale=flops_scale,
-                              storage_scale=storage_scale,
-                              mem_scale=mem_scale, verify=verify)
-            rep.ttc_s = time.perf_counter() - t_start   # include compile
-            return rep
-        consumed = ResourceVector()
-        per_sample: List[float] = []
-        dispatches = 0
-        coll_dispatches = 0
-        emulated_ici = 0.0
-        for r, count in runs:
-            consumed, d, c, e = self._run_per_sample(
-                r, count, flops_scale, storage_scale, mem_scale,
-                consumed, per_sample, verify)
-            dispatches += d
-            coll_dispatches += c
-            emulated_ici += e
-        ttc = time.perf_counter() - t_start
-        return EmulationReport(command=profile.command, ttc_s=ttc,
-                               n_samples=len(per_sample), consumed=consumed,
-                               per_sample_s=per_sample,
-                               planned=profile.totals,
-                               mode="per_sample",
-                               n_dispatches=dispatches,
-                               n_collective_dispatches=coll_dispatches,
-                               emulated_ici_bytes=emulated_ici)
+        # spans: the root ``emulate``; ``emulate.collapse``,
+        # ``schedule.compile``, ``emulate.totals`` and ``replay`` under it
+        with spans.span("emulate") as root:
+            with spans.span("emulate.collapse"):
+                runs = _collapse(profile.samples)
+            if root is not None:
+                root.attrs.update(samples=len(profile.samples),
+                                  rows=len(runs))
+            use_fused = fused and self._fusable
+            t_start = time.perf_counter()
+            if use_fused:
+                with spans.span("schedule.compile"):
+                    sched = compile_schedule(runs, compute=self.compute,
+                                             memory=self.memory,
+                                             collective=self.collective,
+                                             flops_scale=flops_scale,
+                                             mem_scale=mem_scale,
+                                             speed=self.speed)
+                with spans.span("emulate.totals"):
+                    planned = profile.totals
+                rep = self.replay(sched, command=profile.command,
+                                  planned=planned,
+                                  flops_scale=flops_scale,
+                                  storage_scale=storage_scale,
+                                  mem_scale=mem_scale, verify=verify)
+                rep.ttc_s = time.perf_counter() - t_start   # include compile
+                return rep
+            consumed = ResourceVector()
+            per_sample: List[float] = []
+            dispatches = 0
+            coll_dispatches = 0
+            emulated_ici = 0.0
+            for r, count in runs:
+                consumed, d, c, e = self._run_per_sample(
+                    r, count, flops_scale, storage_scale, mem_scale,
+                    consumed, per_sample, verify)
+                dispatches += d
+                coll_dispatches += c
+                emulated_ici += e
+            ttc = time.perf_counter() - t_start
+            return EmulationReport(command=profile.command, ttc_s=ttc,
+                                   n_samples=len(per_sample),
+                                   consumed=consumed,
+                                   per_sample_s=per_sample,
+                                   planned=profile.totals,
+                                   mode="per_sample",
+                                   n_dispatches=dispatches,
+                                   n_collective_dispatches=coll_dispatches,
+                                   emulated_ici_bytes=emulated_ici)
 
     def emulate_many(self, profiles: Iterable[SynapseProfile], *,
                      flops_scale: float = 1.0, storage_scale: float = 1.0,

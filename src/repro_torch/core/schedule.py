@@ -49,6 +49,7 @@ from repro_torch.device import DeviceLike, resolve, sync
 from repro_torch.kernels.memory_atom.kernel import Ring
 from repro_torch.kernels.segment import ops as segment_ops
 from repro_torch.kernels.segment.kernel import SegmentRun
+from repro_torch.obs import spans
 
 
 @dataclass
@@ -385,37 +386,40 @@ class SegmentRunner:
         carry, and ``w``, the collective carry, each None when no row uses
         it; wait for them with ``repro_torch.device.sync``, then
         ``settle()`` it — or ``None`` when every row quantized to zero
-        iterations (nothing to dispatch)."""
-        with_c = segment.compute_iters > 0
-        with_m = segment.memory_iters > 0
-        with_coll = segment.collective_iters > 0
-        if not (with_c or with_m or with_coll):
-            return None
-        if with_coll and (self.collective is None
-                          or self.collective.mesh is None):
-            raise RuntimeError(
-                "mesh-bound segment (collective iterations in its table) "
-                "but this runner has no mesh-bound CollectiveAtom; "
-                "recompile the schedule with keep_collectives=True to "
-                "replay wire legs per-sample, or give the emulator a mesh")
-        if with_coll and not self.collective.mesh.shared:
-            return self._launch_split(segment, with_c, with_m)
-        padded = _next_pow2(segment.n_rows)
-        table = np.zeros((padded, 3), dtype=np.int32)
-        table[:segment.n_rows] = segment.table
-        w = self._coll_operand() if with_coll else None
-        if self.backend == "cuda":
-            return segment_ops.segment(
-                table, x=self._compute_operand() if with_c else None,
-                ring=self._ring() if with_m else None, w=w,
-                kind=self.collective.kind if with_coll else "all-reduce")
-        # wire-only segments skip the (big) compute and memory operands;
-        # the ring is the memory atom's, so a fused pass costs what an atom
-        # pass costs
-        return SegmentRun(*self._segment(
-            self._compute_operand() if with_c else None,
-            self._ring() if with_m else None, w, table,
-            self.collective.loop_body() if with_coll else None))
+        iterations (nothing to dispatch).  Span ``segment.launch``; while
+        tracing, the ``"cuda"`` backend launches the timed kernel."""
+        with spans.span("segment.launch"):
+            with_c = segment.compute_iters > 0
+            with_m = segment.memory_iters > 0
+            with_coll = segment.collective_iters > 0
+            if not (with_c or with_m or with_coll):
+                return None
+            if with_coll and (self.collective is None
+                              or self.collective.mesh is None):
+                raise RuntimeError(
+                    "mesh-bound segment (collective iterations in its table) "
+                    "but this runner has no mesh-bound CollectiveAtom; "
+                    "recompile the schedule with keep_collectives=True to "
+                    "replay wire legs per-sample, or give the emulator a mesh")
+            if with_coll and not self.collective.mesh.shared:
+                return self._launch_split(segment, with_c, with_m)
+            padded = _next_pow2(segment.n_rows)
+            table = np.zeros((padded, 3), dtype=np.int32)
+            table[:segment.n_rows] = segment.table
+            w = self._coll_operand() if with_coll else None
+            if self.backend == "cuda":
+                return segment_ops.segment(
+                    table, x=self._compute_operand() if with_c else None,
+                    ring=self._ring() if with_m else None, w=w,
+                    kind=self.collective.kind if with_coll else "all-reduce",
+                    timed=spans.on())
+            # wire-only segments skip the (big) compute and memory operands;
+            # the ring is the memory atom's, so a fused pass costs what an atom
+            # pass costs
+            return SegmentRun(*self._segment(
+                self._compute_operand() if with_c else None,
+                self._ring() if with_m else None, w, table,
+                self.collective.loop_body() if with_coll else None))
 
     def _launch_split(self, segment: FusedSegment, with_c: bool,
                       with_m: bool) -> SegmentRun:
@@ -465,10 +469,29 @@ class SegmentRunner:
     def run(self, segment: FusedSegment) -> bool:
         """Dispatch, sync and settle: the segment's samples are done on
         return.  Returns False when the segment was all-noop (no dispatch
-        issued)."""
+        issued).  Span ``segment.wait`` around the sync and settle; a
+        timed launch's row times go to the span recorder after it."""
         run = self.launch(segment)
         if run is None:
             return False
-        sync(run.tensors())
-        run.settle()
+        with spans.span("segment.wait"):
+            sync(run.tensors())
+            run.settle()
+        if run.stamps is not None:
+            record_row_times(run.stamps.cpu().numpy(), segment)
         return True
+
+
+def record_row_times(stamps: np.ndarray, segment: FusedSegment) -> None:
+    """The rows of a timed launch that ran (a stamp not 0), each with its
+    device nanoseconds (its end less the end of the row before it, the
+    first row's from the launch's first stamp, ``stamps[-1]``) and the
+    operations and bytes ``segment.rows`` planned for it, to the span
+    recorder.  A table with no planned rows (a warm-up's) records nothing."""
+    ran = np.flatnonzero(stamps[:segment.n_rows])
+    if not len(ran) or len(segment.rows) != segment.n_rows:
+        return
+    ends = stamps[ran]
+    ns = np.diff(ends, prepend=stamps[-1])
+    spans.row_times(ns.tolist(), [segment.rows[i].flops for i in ran],
+                    [segment.rows[i].hbm_bytes for i in ran])

@@ -70,6 +70,14 @@
 //     counts[1] and counts[2] once, at its end; the host checks counts[0]
 //     == sum(row[0]) * burn CTAs, counts[1] == sum(row[1]) * grid and
 //     counts[2] == sum(row[2]) * grid after its sync.
+//   * Row times: segment_kernel<T, true>, launched only while the host
+//     traces, stamps the rows on %globaltimer (the device's nanosecond
+//     clock): thread 0 of CTA 0 takes a stamp before the first row
+//     (stamps[n_rows]) and one after each row's grid barrier, the end of
+//     the row before it; after the loop each CTA's thread 0 takes the
+//     largest of its CTA's end into the last row's stamp (atomicMax).
+//     Skipped rows keep 0.  The stamps sit behind `if constexpr`, so
+//     segment_kernel<T, false> compiles to the code it had before them.
 #include <cstdint>
 #include <map>
 #include <mutex>
@@ -94,14 +102,23 @@ using synapse::kThreads;
 static_assert(synapse::kCollThreads == kThreads,
               "coll.cuh lays the carry's share out for the burn's CTAs");
 
-template <int T>
+// the device's nanosecond clock
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long ns;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+  return ns;
+}
+
+// Timed: stamps (n_rows + 1) takes each row's end and the first row's
+// start; untimed, stamps is null and never read.
+template <int T, bool Timed>
 __global__ void __launch_bounds__(kThreads, 1)
     segment_kernel(const int* __restrict__ table, int n_rows,
                    const float* __restrict__ x, float* __restrict__ out,
                    float4* __restrict__ ring, int64_t nvec, int64_t slots,
                    int64_t start, int64_t total_ci, float* __restrict__ coll,
                    int64_t coll_n, int64_t coll_inner, int coll_kind,
-                   unsigned long long* counts) {
+                   unsigned long long* counts, unsigned long long* stamps) {
   using B = Burn<T>;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -131,12 +148,23 @@ __global__ void __launch_bounds__(kThreads, 1)
   cg::grid_group grid = cg::this_grid();
   int64_t it = 0, pass = start, steps = 0;
   bool started = false;
+  // the last row that ran (Timed only)
+  [[maybe_unused]] int last = -1;
+  if constexpr (Timed) {
+    if (blockIdx.x == 0 && threadIdx.x == 0) stamps[n_rows] = global_ns();
+  }
   for (int r = 0; r < n_rows; ++r) {
     const int ci = table[3 * r];
     const int mi = table[3 * r + 1];
     const int wi = coll != nullptr ? table[3 * r + 2] : 0;
     if (ci <= 0 && mi <= 0 && wi <= 0) continue;
     if (started) grid.sync();
+    if constexpr (Timed) {
+      if (started && blockIdx.x == 0 && threadIdx.x == 0) {
+        stamps[last] = global_ns();
+      }
+      last = r;
+    }
     started = true;
     if (burns && ci > 0) {
       synapse::burn_iterations<T>(xr, panel, rank, row0, it, ci, nullptr,
@@ -157,6 +185,11 @@ __global__ void __launch_bounds__(kThreads, 1)
           opaque(coll_kind), wi);
       steps += wi;
     }
+  }
+  if constexpr (Timed) {
+    // the CTA's end of the last row: every thread of it done
+    __syncthreads();
+    if (threadIdx.x == 0 && last >= 0) atomicMax(stamps + last, global_ns());
   }
   if (burns) synapse::burn_store_panel<T>(panel, rank, row0, it, out);
   if (coll != nullptr) {
@@ -213,7 +246,12 @@ cudaError_t segment_grid(int device, size_t smem, int64_t* info) {
         &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
     if (err != cudaSuccess) return err;
     if (smem > size_t(optin)) return cudaErrorInvalidValue;
-    err = cudaFuncSetAttribute(segment_kernel<T>,
+    err = cudaFuncSetAttribute(segment_kernel<T, false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin);
+    if (err != cudaSuccess) return err;
+    // the timed kernel launches on the grid this query gives
+    err = cudaFuncSetAttribute(segment_kernel<T, true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                optin);
     if (err != cudaSuccess) return err;
@@ -222,7 +260,8 @@ cudaError_t segment_grid(int device, size_t smem, int64_t* info) {
   cudaLaunchConfig_t cfg = segment_config<T>(kCluster, smem, nullptr, attr);
   cfg.numAttrs = 1;  // the query takes the cluster dimension alone
   int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, segment_kernel<T>, &cfg);
+  err = cudaOccupancyMaxActiveClusters(&clusters, segment_kernel<T, false>,
+                                       &cfg);
   if (err != cudaSuccess) return err;
   int grid_clusters = (sms + kCluster - 1) / kCluster;
   if (clusters < grid_clusters) grid_clusters = clusters;
@@ -311,13 +350,15 @@ template <int T>
 cudaError_t launch(const int* table, int n_rows, const float* x, float* out,
                    float4* ring, int64_t nvec, int64_t slots, int64_t start,
                    int64_t total_ci, const Coll& coll,
-                   unsigned long long* counts, int grid, size_t smem,
-                   cudaStream_t s) {
+                   unsigned long long* counts, unsigned long long* stamps,
+                   int grid, size_t smem, cudaStream_t s) {
   cudaLaunchAttribute attr[2];
   const cudaLaunchConfig_t cfg = segment_config<T>(grid, smem, s, attr);
+  const auto kernel = stamps != nullptr ? &segment_kernel<T, true>
+                                         : &segment_kernel<T, false>;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, segment_kernel<T>, table, n_rows, x, out, ring, nvec, slots,
-      start, total_ci, coll.carry, coll.n, coll.inner, coll.kind, counts);
+      &cfg, kernel, table, n_rows, x, out, ring, nvec, slots, start, total_ci,
+      coll.carry, coll.n, coll.inner, coll.kind, counts, stamps);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -348,16 +389,18 @@ extern "C" int synapse_segment_grid(int64_t tile, int64_t coll_n,
 // coll_inner float32 each, stepped by the loop body of coll_kind (0
 // all-reduce, 1 all-gather, 2 collective-permute), or null when no row
 // takes collective steps (coll_n shards whose share fits beside the
-// burn's: synapse_segment_grid); counts: 3 zeroed int64 on `device`.  All
-// 16-byte aligned.  One cooperative launch on `stream`; returns its error
-// (the driver's refusal of the cooperative launch included), or
-// cudaSuccess.
+// burn's: synapse_segment_grid); counts: 3 zeroed int64 on `device`;
+// stamps: n_rows + 1 zeroed int64 on `device`, or null: with stamps the
+// timed kernel runs and writes each row's end and the first row's start
+// on the device's nanosecond clock.  All but stamps 16-byte aligned.  One
+// cooperative launch on `stream`; returns its error (the driver's refusal
+// of the cooperative launch included), or cudaSuccess.
 extern "C" int synapse_segment(const void* table, int64_t n_rows,
                                const void* x, void* out, void* ring,
                                int64_t n, int64_t slots, int64_t start,
                                int64_t tile, int64_t total_ci, void* coll,
                                int64_t coll_n, int64_t coll_inner,
-                               int64_t coll_kind, void* counts,
+                               int64_t coll_kind, void* counts, void* stamps,
                                int64_t device, void* stream) {
   if (n_rows < 1 || n_rows > (int64_t(1) << 30) || total_ci < 0 ||
       start < 0 || (ring != nullptr && (n <= 0 || n % 4 || slots < 1)) ||
@@ -381,17 +424,18 @@ extern "C" int synapse_segment(const void* table, int64_t n_rows,
   const Coll w = {static_cast<float*>(coll), coll_n, coll_inner,
                   static_cast<int>(coll_kind)};
   unsigned long long* c = static_cast<unsigned long long*>(counts);
+  unsigned long long* st = static_cast<unsigned long long*>(stamps);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rows = static_cast<int>(n_rows);
   switch (tile) {
     case 64:
       return launch<64>(t, rows, xf, of, rf, n / 4, slots, start, total_ci,
-                        w, c, grid, smem, s);
+                        w, c, st, grid, smem, s);
     case 128:
       return launch<128>(t, rows, xf, of, rf, n / 4, slots, start, total_ci,
-                         w, c, grid, smem, s);
+                         w, c, st, grid, smem, s);
     default:
       return launch<256>(t, rows, xf, of, rf, n / 4, slots, start, total_ci,
-                         w, c, grid, smem, s);
+                         w, c, st, grid, smem, s);
   }
 }

@@ -53,9 +53,9 @@ SIGNATURES = {
     "synapse_l2_cache_bytes": (ctypes.c_int64, [_I]),
     # table, n_rows, x, out, ring, n, slots, start, tile, total compute
     # iterations, collective carry, its shards, its shard's elements, its
-    # kind code, counts, device, stream
+    # kind code, counts, row stamps (null: untimed), device, stream
     "synapse_segment": (ctypes.c_int, [_P, _I, _P, _P, _P, _I, _I, _I, _I,
-                                       _I, _P, _I, _I, _I, _P, _I, _P]),
+                                       _I, _P, _I, _I, _I, _P, _P, _I, _P]),
     # tile, wire carry's shards (0: none) and shard elements, device, info
     # (int64[5]: grid, burn CTAs, active clusters, shared memory a CTA,
     # the device's per-CTA limit)

@@ -23,6 +23,12 @@ table's sums, and adds them to ``iterations``, ``passes`` and ``steps``:
 the proof, in any process, that a segment burned, streamed and moved
 what its report says.
 
+``run_segment(..., timed=True)`` launches the timed kernel instead, the
+same loop with a stamp of the device's nanosecond clock before the first
+row and at each row's end: ``SegmentRun.stamps``, read after the sync,
+holds one int64 a table row (0 where the kernel skipped the row) and the
+first row's start last.  The plain version takes no stamps.
+
 ``run_segment`` launches the kernel for CUDA tensors and the plain version
 (``ref.run_segment``) for CPU tensors; anything else raises.
 """
@@ -178,12 +184,13 @@ class SegmentRun:
     collective steps stepped (None when no row has any).  ``settle()``
     after the caller's sync checks the device counters (a no-op on the
     CPU, and for ``SegmentRunner``'s ``"torch"`` loop, whose carries it
-    also holds)."""
+    also holds).  ``stamps``: the timed kernel's row stamps, else None."""
 
-    __slots__ = ("y", "slot", "w", "_counts", "_want", "_settled")
+    __slots__ = ("y", "slot", "w", "stamps", "_counts", "_want",
+                 "_settled")
 
-    def __init__(self, y, slot, w=None, counts=None, want=None):
-        self.y, self.slot, self.w = y, slot, w
+    def __init__(self, y, slot, w=None, counts=None, want=None, stamps=None):
+        self.y, self.slot, self.w, self.stamps = y, slot, w, stamps
         self._counts, self._want = counts, want
         self._settled = counts is None
 
@@ -213,11 +220,12 @@ class SegmentRun:
 
 def run_segment(table, x: Optional[torch.Tensor], ring: Optional[Ring],
                 w: Optional[torch.Tensor] = None,
-                kind: str = "all-reduce") -> SegmentRun:
+                kind: str = "all-reduce", timed: bool = False) -> SegmentRun:
     """Run a segment's table: burns on ``x`` [tile, tile] (may be None when
     no row burns), passes over ``ring`` (may be None when no row streams),
     collective steps of ``kind`` on the wire carry ``w`` [n, block], in
-    place (may be None when no row has any)."""
+    place (may be None when no row has any); ``timed`` launches the timed
+    kernel (a card only)."""
     global launches, wire_launches
     t = check_input(table, x, ring, w, kind)
     ci, mi, wi = (int(t[:, i].sum()) for i in range(3))
@@ -242,7 +250,10 @@ def run_segment(table, x: Optional[torch.Tensor], ring: Optional[Ring],
     # the table crosses on the launch stream, from pinned memory
     table_dev = torch.from_numpy(np.ascontiguousarray(t)).pin_memory().to(
         dev, non_blocking=True)
-    counts = torch.zeros(3, dtype=torch.int64, device=dev)
+    # the counts and the row stamps, zeroed by one fill
+    buf = torch.zeros(3 + (t.shape[0] + 1 if timed else 0),
+                      dtype=torch.int64, device=dev)
+    counts, stamps = buf[:3], buf[3:] if timed else None
     out = torch.empty_like(x) if ci else None
     err = lib.synapse_segment(
         table_dev.data_ptr(), t.shape[0], x.data_ptr() if ci else None,
@@ -250,10 +261,11 @@ def run_segment(table, x: Optional[torch.Tensor], ring: Optional[Ring],
         ring.data.shape[1] if mi else 0, ring.slots if mi else 1, start,
         tile, ci, w.data_ptr() if wi else None, w.shape[0] if wi else 0,
         w.shape[1] if wi else 0, KIND_CODES[kind], counts.data_ptr(),
-        dev.index, stream.cuda_stream)
+        stamps.data_ptr() if timed else None, dev.index, stream.cuda_stream)
     build.check(lib, err, "segment")
     with _count_lock:
         launches += 1
         wire_launches += bool(wi)
     return SegmentRun(out, slot, wire, counts,
-                      ((ci, info["burn_ctas"]), (mi, info["grid"]), wi))
+                      ((ci, info["burn_ctas"]), (mi, info["grid"]), wi),
+                      stamps)

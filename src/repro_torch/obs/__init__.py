@@ -26,16 +26,24 @@
     instant events for faults and scales, SLO windows as counter tracks.
     For the same events it builds the same trace as the JAX package.
 
+``spans``
+    The program's own spans and counters inside the emulator, the
+    segment runner and the serving engine, stamped on the device trace's
+    clock (``clock.epoch_ns()``) and recorded while ``torch.profiler``
+    records or inside ``spans.recording()``; with the segment kernel's
+    row times.
+
 Nothing here touches a device.
 """
-from repro_torch.obs.clock import ClockSync, anchor, now, wall
+from repro_torch.obs import spans
+from repro_torch.obs.clock import ClockSync, anchor, epoch_ns, now, wall
 from repro_torch.obs.metrics import MetricsRegistry, parse_promtext
 from repro_torch.obs.recorder import Event, FlightRecorder, ObsFrame
 from repro_torch.obs.trace import (slo_windows_ms, to_chrome_trace,
                                    validate_trace, write_trace)
 
 __all__ = [
-    "ClockSync", "anchor", "now", "wall",
+    "ClockSync", "anchor", "epoch_ns", "now", "wall", "spans",
     "Event", "FlightRecorder", "ObsFrame",
     "slo_windows_ms", "to_chrome_trace", "validate_trace", "write_trace",
     "MetricsRegistry", "parse_promtext",

@@ -17,6 +17,10 @@ module fixes the domain once:
 Monotonic clocks are *per-process* (arbitrary epoch), so a raw remote
 stamp is meaningless locally — every remote event must pass through a
 ``ClockSync`` before it lands on the coordinator timeline.
+
+``epoch_ns()`` is the one exception: the program's spans
+(``obs.spans``) are laid over a device trace, so they stamp on the clock
+``torch.profiler`` stamps device activity on, the epoch in nanoseconds.
 """
 from __future__ import annotations
 
@@ -32,6 +36,12 @@ _ANCHOR_WALL: float = time.time()
 def now() -> float:
     """Monotonic stamp — the one clock every event/timing records."""
     return time.monotonic()
+
+
+def epoch_ns() -> int:
+    """The device trace's clock: ``time.time_ns()``, the stamp of every
+    span of ``obs.spans``."""
+    return time.time_ns()
 
 
 def wall(t_mono: Optional[float] = None) -> float:

@@ -10,6 +10,14 @@ On a mesh (a ``DeviceMesh`` over the ranks of a process group, each rank
 serving the same requests), plain parameters are laid out by the decode
 rules' specs, the steps run on DTensors, and each token is read whole on
 every rank.
+
+Spans (``obs.spans``, while tracing), one tree a wave: ``serve.wave``
+(attributes ``prompt_tokens`` and ``positions``), with ``serve.pad`` (the
+padded token matrix to the device), ``serve.prefill`` (the prefill step's
+call: the host's enqueue) and ``serve.first_token`` (the wait for the
+first tokens on the host).  Counters ``serve.prompt_tokens`` (the wave's
+real prompt tokens) and ``serve.positions`` (slots x padded length, the
+positions prefilled).
 """
 from __future__ import annotations
 
@@ -22,6 +30,7 @@ import torch
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.models.model_zoo import Model
 from repro_torch.models.params import place
+from repro_torch.obs import spans
 from repro_torch.parallel.sharding import DECODE_RULES, make_rules, whole
 from repro_torch.serve.step import make_decode_step, make_prefill_step
 
@@ -66,22 +75,31 @@ class Engine:
     def _serve_wave(self, wave: List[Request]):
         B = self.B
         plen = max(len(r.prompt) for r in wave)
-        toks = np.zeros((B, plen), np.int32)
-        for i, r in enumerate(wave):
-            toks[i, plen - len(r.prompt):] = r.prompt   # left-pad
-        tok, cache = self.prefill(
-            self.params, {"tokens": torch.from_numpy(toks).to(self.device)})
-        steps = max(r.max_new_tokens for r in wave)
-        t = whole(tok).cpu().numpy()
-        for i, r in enumerate(wave):
-            r.out_tokens.append(int(t[i, 0]))
-        for _ in range(steps - 1):
-            tok, cache = self.decode(self.params, tok, cache)
-            t = whole(tok).cpu().numpy()
+        with spans.span("serve.wave") as root:
+            if root is not None:
+                tokens = sum(len(r.prompt) for r in wave)
+                root.attrs.update(prompt_tokens=tokens, positions=B * plen)
+                root.count("serve.prompt_tokens", tokens)
+                root.count("serve.positions", B * plen)
+            with spans.span("serve.pad"):
+                toks = np.zeros((B, plen), np.int32)
+                for i, r in enumerate(wave):
+                    toks[i, plen - len(r.prompt):] = r.prompt   # left-pad
+                batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+            with spans.span("serve.prefill"):
+                tok, cache = self.prefill(self.params, batch)
+            steps = max(r.max_new_tokens for r in wave)
+            with spans.span("serve.first_token"):
+                t = whole(tok).cpu().numpy()
             for i, r in enumerate(wave):
-                if not r.done and len(r.out_tokens) < r.max_new_tokens:
-                    r.out_tokens.append(int(t[i, 0]))
-                else:
-                    r.done = True
+                r.out_tokens.append(int(t[i, 0]))
+            for _ in range(steps - 1):
+                tok, cache = self.decode(self.params, tok, cache)
+                t = whole(tok).cpu().numpy()
+                for i, r in enumerate(wave):
+                    if not r.done and len(r.out_tokens) < r.max_new_tokens:
+                        r.out_tokens.append(int(t[i, 0]))
+                    else:
+                        r.done = True
         for r in wave:
             r.done = True

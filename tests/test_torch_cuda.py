@@ -132,6 +132,38 @@ def test_segment_matches_plain(dev, tile, table):
     assert ring.passes == 5 + mi
 
 
+@pytest.mark.parametrize("tile", sk.TILES)
+@pytest.mark.parametrize("table", SEGMENT_TABLES)
+def test_timed_segment_matches_plain_and_stamps_its_rows(dev, tile, table):
+    """The timed kernel computes what the kernel does, and stamps the rows
+    that ran, each no earlier than the one before, all after the first
+    row's start (the last stamp), and no other row.  (The device's clock
+    may tick in microseconds: a short row may read 0 ns.)"""
+    rng = np.random.default_rng(5)
+    t = np.asarray(table, np.int32)
+    ci, mi = int(t[:, 0].sum()), int(t[:, 1].sum())
+    x = torch.from_numpy((rng.standard_normal((tile, tile)) * 0.1).astype(
+        np.float32)).to(dev)
+    ring = mk.Ring(1 << 18, dev, slots=3)
+    want_ring = ring.data.clone()
+    want_y = sref.run_segment(t, x, want_ring, start=0)
+    before = (sk.iterations, sk.passes)
+    run = sk.run_segment(t, x if ci else None, ring if mi else None,
+                         timed=True)
+    torch.cuda.synchronize()
+    run.settle()
+    assert (sk.iterations - before[0], sk.passes - before[1]) == (ci, mi)
+    if ci:
+        torch.testing.assert_close(run.y, want_y, atol=1e-5, rtol=1e-5)
+    assert torch.equal(ring.data, want_ring)
+    stamps = run.stamps.cpu().numpy()
+    assert stamps.shape == (len(t) + 1,)
+    ran = t.any(axis=1)
+    assert ((stamps[:-1] != 0) == ran).all()
+    ends = stamps[:-1][ran]
+    assert (np.diff(ends) >= 0).all() and ends[0] >= stamps[-1] > 0
+
+
 def test_segment_counters_exact_under_threads(dev):
     """2 threads launch 40 segments each on one runner (one ring, one wire
     carry): the device counts every iteration, pass and collective step,
