@@ -9,8 +9,9 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
   build      the kernel library's build seconds and, for each kernel
              symbol, its ptxas register and spill lines and the HGMMA and
              HMMA (tensor-core) instructions in its SASS; fails if the
-             bf16 flash kernel has no HGMMA, or if the float32 one has any
-             HGMMA or HMMA (TF32 would be HMMA) or spills
+             bf16 flash kernel has no HGMMA, or if the float32 one, the
+             compute atom's cluster burn or any segment kernel instance
+             has any HGMMA or HMMA (TF32 would be HMMA) or spills
   kernels    each kernel against its plain PyTorch version on the card, at
              several shapes, with its device time, its plain version's, a
              PyTorch library call's (each a CUDA graph's replay) and the
@@ -204,6 +205,8 @@ BF16_RTOL = 1e-2           # the JAX package's own bf16 stream tolerance
 # of csrc/flash_attention.cu, in mangled symbols
 BF16_FLASH_SYMBOL = "fa_sm90"
 F32_FLASH_SYMBOL = "fa_simt_f32"
+# the kernels that run the burn (csrc/burn.cuh): exact float32 FFMA only
+BURN_SYMBOLS = ("burn_cluster", "segment_kernel")
 # flash attention, atol and rtol: the JAX package's own (tests/test_kernels.py)
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # final hidden states of the depth-cut model, "cuda" against "full" in
@@ -701,6 +704,21 @@ def phase_build():
     for k, n in f32.items():
         if n["HGMMA"] or n["HMMA"] or n["spill_bytes"]:
             fail(f"the float32 flash kernel {k} has {n['HGMMA']} HGMMA, "
+                 f"{n['HMMA']} HMMA and {n['spill_bytes']} spill bytes; "
+                 f"want none")
+    # so must the burn: plain FFMA in the compute atom's cluster kernel and
+    # in every instance of the segment kernel, with no spill
+    burn = {k: {**n, **ptxas_numbers(resources.get(k, []))}
+            for k, n in mma.items()
+            if any(b in k for b in BURN_SYMBOLS)}
+    emit("build", kernel="burn", symbols=burn)
+    if len([k for k in burn if "burn_cluster" in k]) != 3 or \
+            len([k for k in burn if "segment_kernel" in k]) != 6:
+        fail(f"want 3 burn_cluster and 6 segment_kernel symbols: "
+             f"{sorted(burn)}")
+    for k, n in burn.items():
+        if n["HGMMA"] or n["HMMA"] or n["spill_bytes"]:
+            fail(f"the burn's kernel {k} has {n['HGMMA']} HGMMA, "
                  f"{n['HMMA']} HMMA and {n['spill_bytes']} spill bytes; "
                  f"want none")
     return kernels

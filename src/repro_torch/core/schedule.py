@@ -470,13 +470,19 @@ class SegmentRunner:
         """Dispatch, sync and settle: the segment's samples are done on
         return.  Returns False when the segment was all-noop (no dispatch
         issued).  Span ``segment.wait`` around the sync and settle; a
-        timed launch's row times go to the span recorder after it."""
+        timed launch's burn sums bump its counters ``segment.burn_wait_ns``
+        and ``segment.burn_ns``, and its row times go to the span recorder
+        after it."""
         run = self.launch(segment)
         if run is None:
             return False
-        with spans.span("segment.wait"):
+        with spans.span("segment.wait") as sp:
             sync(run.tensors())
             run.settle()
+            if sp is not None and run.burn_ns is not None:
+                waited, burned = run.burn_ns.tolist()
+                sp.count("segment.burn_wait_ns", waited)
+                sp.count("segment.burn_ns", burned)
         if run.stamps is not None:
             record_row_times(run.stamps.cpu().numpy(), segment)
         return True

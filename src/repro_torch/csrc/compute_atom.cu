@@ -17,26 +17,28 @@
 // CTAs at tile 256); CTA j computes the columns C_j = [j tile/2,
 // (j+1) tile/2) of the panel.  The TPU kernel keeps x resident in VMEM;
 // here x's column slice x[:, C_j] stays in the CTA's registers for the
-// whole burn (128 floats a thread at tile 256): warp w holds the rows
-// K_w = [w tile/8, (w+1) tile/8) of it, and each lane tile/64 neighbouring
-// columns.  An iteration:
-//   1. each thread sums y_t[r, K_w] . x[K_w, c] for the panel's 4 rows and
-//      its columns, reading y_t from the CTA's own copy of the panel in
-//      shared memory (one address a warp: a broadcast);
-//   2. the 8 warps' partial sums meet in shared memory; 4 columns at a
-//      time are reduced, finished with (* 0.5 + 0.25) and stored into the
-//      next copy of the panel of both CTAs of the cluster (distributed
-//      shared memory, `map_shared_rank`), or into `out` on the last
-//      iteration;
-//   3. one cluster barrier publishes y_{t+1} to both CTAs.
-// (The cluster's device code is in burn.cuh, shared with csrc/segment.cu.)
-// The panel is double-buffered, so the one barrier also keeps a CTA from
-// overwriting a copy that the other still reads.  Why 2 CTAs and not 8:
-// the shared-memory loads of y bound step 1, and a warp loads each y value
-// once for all the columns its lanes cover; a CTA that owns half of x's
-// columns lets a warp cover 128 columns at tile 256, where one that owns
-// an eighth covers 32 and loads y four times as often.  x's half slice
-// still fits the registers (32768 floats over 256 threads).
+// whole burn (128 floats a thread at tile 256): warp w owns tile/16 of
+// the columns, each lane 4 of them and a k range of x's rows (tile/8 rows
+// at tile 256, the 8 lanes of a column group covering all tile), so a
+// row's dot products are summed over the warp's own lanes by shuffles.
+// The dependency that orders the work is per row: y_{t+1}[r, :] needs
+// only y_t[r, :].  So each row of the panel is published on its own
+// mbarrier in each CTA (the peer's columns arrive by st.async, counted in
+// bytes on the barrier), and a warp waits only for the row it is about to
+// read: while one row's sums cross the lanes and the cluster, the warps
+// run the FMAs of the panel's three other rows.  An exchange is a
+// latency, not work: on an H100, a design that summed the warps' partials
+// through shared memory behind __syncthreads and one cluster barrier an
+// iteration spent ~1,450 SM cycles in it at every tile, about three
+// rows' FMAs at tile 256, with no FMA running.  (The cluster's device code
+// is in burn.cuh, shared with csrc/segment.cu.)
+// The panel is double-buffered, so a row's barrier also keeps a CTA from
+// overwriting a copy that a warp still reads.  Each 4 floats of y a lane
+// loads from shared memory feed 16 FMAs, one for each of its 4 columns
+// (the shared-memory loads bound an FMA step that feeds fewer).  Why 2
+// CTAs: half of x is what a CTA's registers hold (32768 floats over 256
+// threads at tile 256), so 2 is the fewest that keep x in registers, and
+// a row's exchange crosses to one peer only.
 //
 // Other tiles (a multiple of 8, up to 2^15) take the per-iteration kernel:
 // one launch an iteration over 16x16 output blocks, ping-ponging between
@@ -100,6 +102,7 @@ cudaError_t burn_per_iteration(const float* x, float* out, float* scratch,
 
 using synapse::Burn;
 using synapse::kCluster;
+using synapse::kCw;
 using synapse::kRows;
 using synapse::kThreads;
 
@@ -112,13 +115,14 @@ __global__ void __launch_bounds__(kThreads)
   const int rank = static_cast<int>(cluster.block_rank());  // slice C_rank
   const int64_t row0 = int64_t(blockIdx.x / kCluster) * kRows;
   extern __shared__ float4 smem4[];
-  float* panel = reinterpret_cast<float*>(smem4);  // [2][kRows][T], partials
-  float xr[B::KG][B::CW];
+  float* panel = reinterpret_cast<float*>(smem4);  // [2][kRows][P], barriers
+  float xr[B::KG][kCw];
   synapse::burn_load_x<T>(x, rank, xr);
   synapse::burn_load_panel<T>(x, row0, panel);
-  // also: no CTA stores into the other's shared memory before it runs
+  // also: no CTA stores into the other's shared memory, or signals its
+  // barriers, before it has made them
   cluster.sync();
-  synapse::burn_iterations<T>(xr, panel, rank, row0, 0, iters, out, cluster);
+  synapse::burn_iterations<T>(xr, panel, rank, row0, 0, iters, out);
 }
 
 template <int T>
@@ -127,7 +131,7 @@ cudaError_t burn_one_launch(const float* x, float* out, int64_t iters,
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(kCluster * (T / kRows), 1, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = Burn<T>::kSmem;  // 24 KB at most: no opt-in
+  cfg.dynamicSmemBytes = Burn<T>::kSmem;  // 9.1 KB at most: no opt-in
   cfg.stream = s;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;

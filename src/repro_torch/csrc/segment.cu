@@ -32,11 +32,14 @@
 // Design.
 //   * The compute leg is the burn's cluster design (burn.cuh, shared with
 //     csrc/compute_atom.cu): 2-CTA clusters, each owning a 4-row panel of
-//     y, x's column slice in registers, one cluster barrier an iteration.
-//     Panels never depend on each other, so a burn needs no grid barrier.
-//     The panel stays in shared memory across rows; the CTAs write it to
-//     `out` once, after the last row.  Tiles 64, 128 and 256 only: T / 2
-//     CTAs burn (128 at tile 256, one an SM).
+//     y, x's column slice in registers, each row of the panel published
+//     on its own mbarrier in each CTA, so the exchange of one row runs
+//     under the FMAs of the others.  Panels never depend on each other,
+//     so a burn needs no grid barrier.  The panel and its barriers stay
+//     in shared memory across rows (a row's barrier phases follow the
+//     iteration count, which runs on across rows); the CTAs write the
+//     panel to `out` once, after the last row.  Tiles 64, 128 and 256
+//     only: T / 2 CTAs burn (128 at tile 256, one an SM).
 //   * The memory leg is the ring pass (ring.cuh): every CTA of the grid
 //     owns a fixed slice of every slot, so pass p + 1 never waits on
 //     another CTA's pass p and a row needs no barrier inside it.
@@ -76,8 +79,12 @@
 //     (stamps[n_rows]) and one after each row's grid barrier, the end of
 //     the row before it; after the loop each CTA's thread 0 takes the
 //     largest of its CTA's end into the last row's stamp (atomicMax).
-//     Skipped rows keep 0.  The stamps sit behind `if constexpr`, so
-//     segment_kernel<T, false> compiles to the code it had before them.
+//     Skipped rows keep 0.  Each burning CTA's thread 0 (lane 0 of warp
+//     0) also sums the ns it waited for a row of y (burn.cuh's Timed
+//     wait) and the ns of its burns, row by row, and adds both to
+//     stamps[n_rows + 1] and stamps[n_rows + 2] at its end.  The stamps
+//     sit behind `if constexpr`, so segment_kernel<T, false> compiles to
+//     the code it had before them.
 #include <cstdint>
 #include <map>
 #include <mutex>
@@ -95,22 +102,18 @@ namespace cg = cooperative_groups;
 namespace {
 
 using synapse::Burn;
+using synapse::global_ns;
 using synapse::kCluster;
+using synapse::kCw;
 using synapse::kRows;
 using synapse::kThreads;
 
 static_assert(synapse::kCollThreads == kThreads,
               "coll.cuh lays the carry's share out for the burn's CTAs");
 
-// the device's nanosecond clock
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long ns;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
-  return ns;
-}
-
-// Timed: stamps (n_rows + 1) takes each row's end and the first row's
-// start; untimed, stamps is null and never read.
+// Timed: stamps (n_rows + 3) takes each row's end, the first row's start,
+// and the burning CTAs' summed wait and burn ns; untimed, stamps is null
+// and never read.
 template <int T, bool Timed>
 __global__ void __launch_bounds__(kThreads, 1)
     segment_kernel(const int* __restrict__ table, int n_rows,
@@ -131,12 +134,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* share = panel + B::kSmem / sizeof(float);
   const int t = blockIdx.x * kThreads + threadIdx.x;
   const int threads = gridDim.x * kThreads;
-  float xr[B::KG][B::CW];
+  float xr[B::KG][kCw];
   if (burns) {
     synapse::burn_load_x<T>(x, rank, xr);
     synapse::burn_load_panel<T>(x, row0, panel);
   }
-  // no CTA stores into the other's shared memory before it runs
+  // no CTA stores into the other's shared memory, or signals its
+  // barriers, before it has made them
   if (burns || coll != nullptr) cluster.sync();
   if (coll != nullptr) {
     synapse::coll_load_in(
@@ -148,8 +152,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   cg::grid_group grid = cg::this_grid();
   int64_t it = 0, pass = start, steps = 0;
   bool started = false;
-  // the last row that ran (Timed only)
+  // the last row that ran; the ns thread 0 waited for y and burned
+  // (Timed only)
   [[maybe_unused]] int last = -1;
+  [[maybe_unused]] unsigned long long waited = 0, burned = 0;
   if constexpr (Timed) {
     if (blockIdx.x == 0 && threadIdx.x == 0) stamps[n_rows] = global_ns();
   }
@@ -167,8 +173,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     started = true;
     if (burns && ci > 0) {
-      synapse::burn_iterations<T>(xr, panel, rank, row0, it, ci, nullptr,
-                                  cluster);
+      if constexpr (Timed) {
+        const unsigned long long t0 = global_ns();
+        synapse::burn_iterations<T, true>(xr, panel, rank, row0, it, ci,
+                                          nullptr, &waited);
+        burned += global_ns() - t0;
+      } else {
+        synapse::burn_iterations<T>(xr, panel, rank, row0, it, ci, nullptr);
+      }
       it += ci;
     }
     if (mi > 0) {
@@ -190,6 +202,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     // the CTA's end of the last row: every thread of it done
     __syncthreads();
     if (threadIdx.x == 0 && last >= 0) atomicMax(stamps + last, global_ns());
+    if (threadIdx.x == 0 && burns) {
+      atomicAdd(stamps + n_rows + 1, waited);
+      atomicAdd(stamps + n_rows + 2, burned);
+    }
   }
   if (burns) synapse::burn_store_panel<T>(panel, rank, row0, it, out);
   if (coll != nullptr) {
@@ -390,11 +406,13 @@ extern "C" int synapse_segment_grid(int64_t tile, int64_t coll_n,
 // all-reduce, 1 all-gather, 2 collective-permute), or null when no row
 // takes collective steps (coll_n shards whose share fits beside the
 // burn's: synapse_segment_grid); counts: 3 zeroed int64 on `device`;
-// stamps: n_rows + 1 zeroed int64 on `device`, or null: with stamps the
+// stamps: n_rows + 3 zeroed int64 on `device`, or null: with stamps the
 // timed kernel runs and writes each row's end and the first row's start
-// on the device's nanosecond clock.  All but stamps 16-byte aligned.  One
-// cooperative launch on `stream`; returns its error (the driver's refusal
-// of the cooperative launch included), or cudaSuccess.
+// on the device's nanosecond clock, then the ns the burning CTAs waited
+// for a row of y and the ns they burned, each summed over those CTAs.
+// All but stamps 16-byte aligned.  One cooperative launch on `stream`;
+// returns its error (a refused cooperative launch included), or
+// cudaSuccess.
 extern "C" int synapse_segment(const void* table, int64_t n_rows,
                                const void* x, void* out, void* ring,
                                int64_t n, int64_t slots, int64_t start,

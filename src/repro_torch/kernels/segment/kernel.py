@@ -27,7 +27,10 @@ what its report says.
 same loop with a stamp of the device's nanosecond clock before the first
 row and at each row's end: ``SegmentRun.stamps``, read after the sync,
 holds one int64 a table row (0 where the kernel skipped the row) and the
-first row's start last.  The plain version takes no stamps.
+first row's start last.  ``SegmentRun.burn_ns`` holds two more: the ns
+the burning CTAs waited for a row of y to be published (lane 0 of warp 0
+in each, while it waited) and the ns they spent in their burns, each
+summed over those CTAs.  The plain version takes no stamps.
 
 ``run_segment`` launches the kernel for CUDA tensors and the plain version
 (``ref.run_segment``) for CPU tensors; anything else raises.
@@ -71,9 +74,9 @@ _count_lock = threading.Lock()
 
 def burn_smem_bytes(tile: int) -> int:
     """Shared memory a CTA gives the burn at ``tile`` (``Burn<T>::kSmem``
-    of csrc/burn.cuh): two copies of the 4-row panel and the 8 warps'
-    partial sums of its half of the columns."""
-    return (2 * 4 * tile + 4 * 8 * (tile // 2)) * 4
+    of csrc/burn.cuh): two copies of the 4-row panel, each row padded by
+    4 floats after every 32, and an 8-byte mbarrier a row a copy."""
+    return 2 * 4 * (tile + tile // 8) * 4 + 2 * 4 * 8
 
 
 def wire_share_bytes(n: int, inner: int, grid: int) -> int:
@@ -184,13 +187,17 @@ class SegmentRun:
     collective steps stepped (None when no row has any).  ``settle()``
     after the caller's sync checks the device counters (a no-op on the
     CPU, and for ``SegmentRunner``'s ``"torch"`` loop, whose carries it
-    also holds).  ``stamps``: the timed kernel's row stamps, else None."""
+    also holds).  ``stamps``: the timed kernel's row stamps, else None;
+    ``burn_ns``: its two burn sums (ns waited for y, ns burned), else
+    None."""
 
-    __slots__ = ("y", "slot", "w", "stamps", "_counts", "_want",
+    __slots__ = ("y", "slot", "w", "stamps", "burn_ns", "_counts", "_want",
                  "_settled")
 
-    def __init__(self, y, slot, w=None, counts=None, want=None, stamps=None):
+    def __init__(self, y, slot, w=None, counts=None, want=None, stamps=None,
+                 burn_ns=None):
         self.y, self.slot, self.w, self.stamps = y, slot, w, stamps
+        self.burn_ns = burn_ns
         self._counts, self._want = counts, want
         self._settled = counts is None
 
@@ -250,10 +257,13 @@ def run_segment(table, x: Optional[torch.Tensor], ring: Optional[Ring],
     # the table crosses on the launch stream, from pinned memory
     table_dev = torch.from_numpy(np.ascontiguousarray(t)).pin_memory().to(
         dev, non_blocking=True)
-    # the counts and the row stamps, zeroed by one fill
-    buf = torch.zeros(3 + (t.shape[0] + 1 if timed else 0),
-                      dtype=torch.int64, device=dev)
-    counts, stamps = buf[:3], buf[3:] if timed else None
+    # the counts, the row stamps and the burn's two sums, zeroed by one
+    # fill
+    n = t.shape[0]
+    buf = torch.zeros(3 + (n + 3 if timed else 0), dtype=torch.int64,
+                      device=dev)
+    counts = buf[:3]
+    stamps, burn_ns = (buf[3:4 + n], buf[4 + n:]) if timed else (None, None)
     out = torch.empty_like(x) if ci else None
     err = lib.synapse_segment(
         table_dev.data_ptr(), t.shape[0], x.data_ptr() if ci else None,
@@ -268,4 +278,4 @@ def run_segment(table, x: Optional[torch.Tensor], ring: Optional[Ring],
         wire_launches += bool(wi)
     return SegmentRun(out, slot, wire, counts,
                       ((ci, info["burn_ctas"]), (mi, info["grid"]), wi),
-                      stamps)
+                      stamps, burn_ns)

@@ -11,7 +11,9 @@ root's id), and a few small attributes (``Span.attrs``).
 Counters are plain integers, bumped when the span that carries them
 closes (``Span.count``).  A segment launched while tracing records the
 device time of each of its rows (``row_times``), stamped by the timed
-segment kernel.
+segment kernel, and its ``segment.wait`` span counts the ns the kernel's
+burning CTAs waited for a row of y (``segment.burn_wait_ns``) and the ns
+they burned (``segment.burn_ns``), summed on the device's clock.
 
 Tracing is on while ``torch.profiler`` records (between a profile's
 ``start()`` and ``stop()``) or inside ``recording()``.  Off, ``span()``

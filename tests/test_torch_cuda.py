@@ -59,6 +59,30 @@ def test_burn_tile_matches_plain(dev, tile, launches):
                                atol=1e-5, rtol=1e-5)
 
 
+# the cluster burn's row pipeline (csrc/burn.cuh): fewer iterations than
+# the panel's rows, one, an odd count (the double buffer's parity) and a
+# long burn, at every cluster tile, on a random x
+@pytest.mark.parametrize("tile", (64, 128, 256))
+@pytest.mark.parametrize("iters", (1, 2, 3, 17, 1000))
+def test_cluster_burn_matches_plain_at_every_count(dev, tile, iters):
+    x = torch.from_numpy((np.random.default_rng(tile).standard_normal(
+        (tile, tile)) * 0.1).astype(np.float32)).to(dev)
+    got = ck.burn_tile(x, iters=iters)
+    torch.testing.assert_close(got, cref.burn_tile(x, iters=iters),
+                               atol=1e-5, rtol=1e-5)
+
+
+# at x = 0.5 I, the emulation cells' operand, every sum has one nonzero
+# term, so any order of it gives the benchmark reference's bits
+@pytest.mark.parametrize("tile", (64, 128, 256))
+def test_cluster_burn_at_half_identity_is_the_references_bits(dev, tile):
+    from synbench.reference import emulation
+    x = torch.eye(tile, dtype=torch.float32, device=dev) * 0.5
+    for iters in (1, 2, 3, 17, 1000):
+        assert torch.equal(ck.burn_tile(x, iters=iters),
+                           emulation.burn(tile, iters, dev)), iters
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n", [1 << 20, (1 << 20) + 13])
 def test_stream_matches_plain(dev, dtype, n):
@@ -162,6 +186,47 @@ def test_timed_segment_matches_plain_and_stamps_its_rows(dev, tile, table):
     assert ((stamps[:-1] != 0) == ran).all()
     ends = stamps[:-1][ran]
     assert (np.diff(ends) >= 0).all() and ends[0] >= stamps[-1] > 0
+
+
+# burn rows of one iteration each, between ring rows and zero rows: each
+# burn row publishes its panel rows and the next one, after a grid
+# barrier, waits for them
+ONE_ITERATION_TABLES = [
+    [[1, 0, 0], [0, 2, 0], [0, 0, 0], [1, 0, 0], [0, 1, 0], [1, 1, 0],
+     [0, 0, 0], [1, 0, 0]],
+    [[0, 3, 0], [1, 0, 0], [0, 0, 0], [0, 0, 0], [1, 2, 0], [0, 1, 0],
+     [1, 0, 0]],
+]
+
+
+@pytest.mark.parametrize("tile", sk.TILES)
+@pytest.mark.parametrize("table", ONE_ITERATION_TABLES)
+@pytest.mark.parametrize("timed", [False, True])
+def test_segment_with_one_iteration_burn_rows(dev, tile, table, timed):
+    """The burn carry to 1e-5, the ring bit for bit and the device
+    counters exact, untimed and timed; timed, the burning CTAs' summed
+    wait for y is no more than their summed burn time."""
+    rng = np.random.default_rng(6)
+    t = np.asarray(table, np.int32)
+    ci, mi = int(t[:, 0].sum()), int(t[:, 1].sum())
+    x = torch.from_numpy((rng.standard_normal((tile, tile)) * 0.1).astype(
+        np.float32)).to(dev)
+    ring = mk.Ring(1 << 18, dev, slots=3)
+    want_ring = ring.data.clone()
+    want_y = sref.run_segment(t, x, want_ring, start=0)
+    before = (sk.launches, sk.iterations, sk.passes)
+    run = sk.run_segment(t, x, ring, timed=timed)
+    torch.cuda.synchronize()
+    run.settle()
+    assert (sk.launches - before[0], sk.iterations - before[1],
+            sk.passes - before[2]) == (1, ci, mi)
+    torch.testing.assert_close(run.y, want_y, atol=1e-5, rtol=1e-5)
+    assert torch.equal(ring.data, want_ring)
+    if timed:
+        waited, burned = run.burn_ns.tolist()
+        assert 0 <= waited <= burned and burned > 0
+    else:
+        assert run.burn_ns is None
 
 
 def test_segment_counters_exact_under_threads(dev):

@@ -165,14 +165,15 @@ def test_segment_wrapper_takes_only_the_cluster_tiles():
                                           (8, 132, 8192), (2, 64, 4096)])
 def test_wire_share_of_shared_memory(n, grid, share):
     assert tsk.wire_share_bytes(n, 1 << 15, grid) == share
-    assert tsk.check_wire_fits(256, n, 1 << 15, grid) == 24576 + share
+    assert tsk.check_wire_fits(256, n, 1 << 15, grid) == 9280 + share
 
 
-# the burn's shared memory at each tile, and the most shards whose share
-# fits beside it within an H100's 232,448 bytes a CTA
-@pytest.mark.parametrize("tile,burn,most", [(64, 6144, 221),
-                                            (128, 12288, 215),
-                                            (256, 24576, 203)])
+# the burn's shared memory at each tile (two copies of a 4-row panel whose
+# rows are padded by an eighth, and 8 mbarriers), and the most shards whose
+# share fits beside it within an H100's 232,448 bytes a CTA
+@pytest.mark.parametrize("tile,burn,most", [(64, 2368, 224),
+                                            (128, 4672, 222),
+                                            (256, 9280, 217)])
 def test_wire_carry_limit_beside_the_burn(tile, burn, most):
     assert tsk.burn_smem_bytes(tile) == burn
     assert tsk.max_wire_shards(tile, 1 << 15, 132) == most
