@@ -9,13 +9,19 @@ and for the control:
     TF32 and the ring streamed in bfloat16 take the place of the
     kernel's outputs;
   * serve cells state bfloat16: the reference with its products in
-    float8 e4m3 (``reference.qwen2.final_hidden``'s ``"fp8"``) gives the
-    logits at the last position of each checked row, where the program's
-    are kept, and they are read through the cell's own comparison with
-    the float32 reference (``logit_err``).
+    float8 e4m3 (the configuration's reference's ``final_hidden`` and
+    ``head`` at ``precision="fp8"``) gives the logits at the last
+    position of each checked row, where the program's are kept, and they
+    are read through the cell's own comparison with the float32
+    reference (``logit_err``).
 
     python3 synbench/controls.py --workload <cell> --seeds 1,2,3 \\
-        [--seconds 3] [--size cell|rehearsal] [--device cuda|cpu]
+        [--seconds 3] [--size cell|rehearsal] [--device cuda|cpu] \\
+        [--fault scan_forgets]
+
+``--fault`` plants a fault in the program first (``FAULTS``), so that the
+program's readings are the faulty program's: its reading at the cell's
+size, beside the control's.
 
 The benchmark's own runs never run this.  ``tests/test_synbench_controls
 .py`` runs it at the rehearsal size on a card.
@@ -29,6 +35,40 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def forgetful_scan(scan):
+    """Mamba-2's SSD scan (``ssm.ssd_chunked``'s signature) run on each
+    chunk from a zero state: the state is forgotten at every chunk's
+    start."""
+    import torch.nn.functional as F
+
+    def forgetful(x, dt, A, Bm, Cm, *, chunk, initial_state=None,
+                  return_state=False):
+        B, L = x.shape[:2]
+        pad = -L % chunk
+        n = (L + pad) // chunk
+
+        def chunks(t):
+            t = F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+            return t.reshape(B * n, chunk, *t.shape[2:])
+        out = scan(chunks(x), chunks(dt), A, chunks(Bm), chunks(Cm),
+                   chunk=chunk, return_state=return_state)
+        y = (out[0] if return_state else out).reshape(
+            B, n * chunk, *x.shape[2:])[:, :L]
+        if return_state:
+            return y, out[1].reshape(B, n, *out[1].shape[1:])[:, -1]
+        return y
+    return forgetful
+
+
+def _plant_scan_forgets(setattr_):
+    from repro_torch.models import ssm
+    setattr_(ssm, "ssd_chunked", forgetful_scan(ssm.ssd_chunked))
+
+
+#: faults ``--fault`` plants, each given ``setattr``
+FAULTS = {"scan_forgets": _plant_scan_forgets}
 
 
 def _runner(cell_name: str, seed: int, rehearse: bool, device):
@@ -85,7 +125,8 @@ def serve_readings(runner) -> dict:
 
 
 def readings(cell_name: str, seed: int, seconds: float, rehearse: bool,
-             device) -> dict:
+             device, fault: str = "") -> dict:
+    """One seed's readings; ``fault`` names the fault already planted."""
     from synbench.core.spans import Spans
     runner = _runner(cell_name, seed, rehearse, device)
     runner.setup()
@@ -95,7 +136,7 @@ def readings(cell_name: str, seed: int, seconds: float, rehearse: bool,
         out = emulate_readings(runner)
     else:
         out = serve_readings(runner)
-    out.update(seed=seed, requests=runner.attempted)
+    out.update(seed=seed, requests=runner.attempted, fault=fault or None)
     return out
 
 
@@ -106,6 +147,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seconds", type=float, default=3.0)
     ap.add_argument("--size", choices=("cell", "rehearsal"), default="cell")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--fault", choices=sorted(FAULTS), default="")
     args = ap.parse_args(argv)
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -113,9 +155,11 @@ def main(argv=None) -> int:
     set_cache_dirs(ROOT)
     import torch
     device = torch.device(args.device)
+    if args.fault:
+        FAULTS[args.fault](setattr)
     for seed in (int(s) for s in args.seeds.split(",")):
         r = readings(args.workload, seed, args.seconds,
-                     args.size == "rehearsal", device)
+                     args.size == "rehearsal", device, args.fault)
         print(json.dumps(r), flush=True)
     return 0
 

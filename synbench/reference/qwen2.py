@@ -94,6 +94,11 @@ def request_flops(config: Dict, prompt: int) -> float:
     return float(d["L"] * (lin + attn) + 2 * d["D"] * d["V"])
 
 
+def flash_layers(config: Dict) -> int:
+    """The flash launches of one prefill: one a layer."""
+    return dims(config)["L"]
+
+
 def flash_launch(config: Dict, B: int, S: int, elem: int = 2) -> Count:
     """One causal attention launch over B x S tokens: 4 hd operations a
     visible (query, key) pair and query head; q, k, v and the output read

@@ -29,6 +29,11 @@ from synbench.core.harness import Check, log
 from synbench.core.spans import Spans
 from synbench.reference import emulation as emu_ref
 
+#: what this runner calls on the configuration's reference module
+#: (``reference/<name>.py``)
+REFERENCE_NEEDS = ("port_fields", "DECODE_COST_DEPENDS_ON_LENGTH",
+                   "prefill_samples", "decode_samples")
+
 
 class Runner:
     def __init__(self, cell, ref, device, seed: int, rehearse: bool):

@@ -18,9 +18,11 @@ with the program's state freed: every served token is a largest logit of
 its row; and over a sample of the finished requests drawn from the seed,
 the longest prompt among them, each run once through the plain float32
 forward over the row the program computed (the prompt left-padded with
-token 0 to its wave's longest, attended to as the engine does), the
-largest gap between the program's logit row and the reference's, over
-the reference row's standard deviation (``reference.qwen2.logit_err``).
+token 0 to its wave's longest, run over as the engine does), the largest
+gap between the program's logit row and the reference's, over the
+reference row's standard deviation (the reference's ``logit_err``),
+under the configuration file's limit where it states one, else the
+mix's.
 """
 from __future__ import annotations
 
@@ -34,11 +36,29 @@ from synbench.core import peaks, stats, traffic
 from synbench.core.harness import Check, log
 from synbench.core.spans import Spans
 
+#: what this runner calls on the configuration's reference module
+#: (``reference/<name>.py``); ``flash_launch(config, B, S)`` too where
+#: ``flash_layers(config)``, the flash launches of one prefill, is above 0
+REFERENCE_NEEDS = ("port_fields", "dims", "weight_shapes", "weight_std",
+                   "shapes_match", "request_flops", "flash_layers",
+                   "final_hidden", "head", "logit_err")
+
+
+def logit_err_limit(cell, rehearse: bool) -> float:
+    """The cell's ``logit_err`` limit: its configuration file's
+    (``rehearsal_logit_err_limit`` at the rehearsal size, where readings
+    differ), else its mix's."""
+    key = "rehearsal_logit_err_limit" if rehearse else "logit_err_limit"
+    if key in cell.config:
+        return float(cell.config[key])
+    return float(cell.mix["logit_err_limit"])
+
 
 def make_weights(shapes: Dict, std, seed: int, device, dtype):
     """A tree of tensors of ``shapes``, drawn from ``seed`` on ``device``
     in ``dtype`` with one call for all of them, each leaf a view of the
-    draw scaled by ``std(path, shape)``."""
+    standard normal draw scaled by ``std(path, shape)``, or, where that
+    is a function, set to what it makes of the draw (in float32)."""
     import torch
     leaves = []
 
@@ -56,7 +76,12 @@ def make_weights(shapes: Dict, std, seed: int, device, dtype):
     at = 0
     for path, shape in leaves:
         n = int(np.prod(shape))
-        t = flat[at:at + n].view(shape).mul_(std(path, shape))
+        t = flat[at:at + n].view(shape)
+        s = std(path, shape)
+        if callable(s):
+            t.copy_(s(t.float()))
+        else:
+            t.mul_(s)
         at += n
         node = out
         for k in path[:-1]:
@@ -183,14 +208,16 @@ class Runner:
 
     def facts(self) -> Dict:
         sizes = self.cell.sizes
-        L = self.ref.dims(sizes)["L"]
+        L = self.ref.flash_layers(sizes)
         useful = sum(self.ref.request_flops(sizes, r.prompt)
                      for w in self.waves for r in w["meta"])
         bound = 0.0
-        for w in self.waves:
-            S = max(r.prompt for r in w["meta"])
-            f, b = self.ref.flash_launch(sizes, self.B, S)
-            bound += L * max(f / peaks.BF16_FLOPS, b / peaks.HBM_BYTES_PER_S)
+        if L:
+            for w in self.waves:
+                S = max(r.prompt for r in w["meta"])
+                f, b = self.ref.flash_launch(sizes, self.B, S)
+                bound += L * max(f / peaks.BF16_FLOPS,
+                                 b / peaks.HBM_BYTES_PER_S)
         return {"requests": self.attempted, "useful_flops": useful,
                 "flash_bound_s": bound, "flash_launches": self.launches,
                 "flash_symbol": "fa_sm90"}
@@ -288,4 +315,4 @@ class Runner:
         return [Check("tokens", float(bad), 0.0),
                 Check("served_not_max", float(not_max), 0.0),
                 Check("logit_err", max(errs),
-                      float(self.mix["logit_err_limit"]))]
+                      logit_err_limit(self.cell, self.rehearse))]

@@ -20,20 +20,26 @@ def test_emulate_control_fails(card, cell):
     assert r["control"]["burn_err"] > 0 and r["control"]["ring_err"] > 0
 
 
-def _serve_control_fails(device, seeds):
-    cell = spec.resolve(ROOT, "qwen2-7b.serve_prefill", rehearse=True)
-    limit = cell.mix["logit_err_limit"]
+SERVE = ["qwen2-7b.serve_prefill", "mamba2-780m.serve_prefill_pool"]
+
+
+def _serve_control_fails(cell_name, device, seeds):
+    from synbench.runners.serve import logit_err_limit
+    limit = logit_err_limit(spec.resolve(ROOT, cell_name, rehearse=True),
+                            True)
     for seed in seeds:
-        r = controls.readings(cell.name, seed, 0.5, True, device)
+        r = controls.readings(cell_name, seed, 0.5, True, device)
         assert r["program"]["logit_err"] <= limit
         assert r["control"]["logit_err"] > limit
 
 
 @pytest.mark.card
-def test_serve_control_fails(card):
-    _serve_control_fails(card, (1, 2, 3))
+@pytest.mark.parametrize("cell", SERVE)
+def test_serve_control_fails(card, cell):
+    _serve_control_fails(cell, card, (1, 2, 3))
 
 
-def test_serve_control_fails_on_the_cpu():
+@pytest.mark.parametrize("cell", SERVE)
+def test_serve_control_fails_on_the_cpu(cell):
     import torch
-    _serve_control_fails(torch.device("cpu"), (2 ** 32 + 3,))
+    _serve_control_fails(cell, torch.device("cpu"), (2 ** 32 + 3,))

@@ -13,6 +13,7 @@ from synbench.core import harness, spec
 
 ROOT = os.path.dirname(spec.HERE)
 EMULATE = ["qwen2-7b.emulate_prompts", "mamba2-780m.emulate_decode"]
+SERVE = ["qwen2-7b.serve_prefill", "mamba2-780m.serve_prefill_pool"]
 
 
 def _run(cell, capsys, seed=2 ** 32 + 9):
@@ -24,7 +25,7 @@ def _run(cell, capsys, seed=2 ** 32 + 9):
     return json.loads(out[-1])
 
 
-@pytest.mark.parametrize("cell", EMULATE + ["qwen2-7b.serve_prefill"])
+@pytest.mark.parametrize("cell", EMULATE + SERVE)
 def test_a_sound_run_is_correct(cell, capsys):
     assert _run(cell, capsys)["correct"] is True
 
@@ -90,12 +91,10 @@ def test_a_profile_altered(cell, capsys, monkeypatch):
     assert line["checks"]["profile_bytes"]["value"] > 0
 
 
-# -- the serve cell ----------------------------------------------------------
+# -- the serve cells ---------------------------------------------------------
 
-SERVE = "qwen2-7b.serve_prefill"
-
-
-def test_a_served_token_altered(capsys, monkeypatch):
+@pytest.mark.parametrize("cell", SERVE)
+def test_a_served_token_altered(cell, capsys, monkeypatch):
     from repro_torch.serve import step
     greedy = step.greedy_token
 
@@ -103,12 +102,12 @@ def test_a_served_token_altered(capsys, monkeypatch):
         return (greedy(model, params, hidden_last) + 1) % \
             model.cfg.vocab_size
     monkeypatch.setattr(step, "greedy_token", altered)
-    line = _run(SERVE, capsys)
+    line = _run(cell, capsys)
     assert line["correct"] is False
     assert line["checks"]["served_not_max"]["value"] > 0
 
 
-def test_a_layer_that_leaves_its_state_unchanged(capsys, monkeypatch):
+def _skip_transformer_layers(monkeypatch):
     from repro_torch.models import transformer
     block = transformer.block_apply
 
@@ -116,11 +115,36 @@ def test_a_layer_that_leaves_its_state_unchanged(capsys, monkeypatch):
         y, cache, aux = block(pl, x, **kw)
         return x, cache, aux                     # the layer's update lost
     monkeypatch.setattr(transformer, "block_apply", skipped)
-    line = _run(SERVE, capsys)
+
+
+def _skip_ssm_mixers(monkeypatch):
+    from repro_torch.models import ssm
+    mixer = ssm.mamba2_block
+
+    def skipped(p, x, **kw):
+        out, cache = mixer(p, x, **kw)
+        return out.new_zeros(out.shape), cache   # the mixer's update lost
+    monkeypatch.setattr(ssm, "mamba2_block", skipped)
+
+
+#: where each serve cell's layers are patched: Qwen2-7B's transformer
+#: block, Mamba-2's mixer (``hybrid.make_ssm_block`` adds its output to
+#: the residual stream)
+SKIP_LAYERS = {"qwen2-7b.serve_prefill": _skip_transformer_layers,
+               "mamba2-780m.serve_prefill_pool": _skip_ssm_mixers}
+
+
+@pytest.mark.parametrize("cell", SERVE)
+def test_a_layer_that_leaves_its_state_unchanged(cell, capsys, monkeypatch):
+    SKIP_LAYERS[cell](monkeypatch)
+    line = _run(cell, capsys)
     assert line["correct"] is False
+    assert line["checks"]["logit_err"]["value"] > \
+        line["checks"]["logit_err"]["limit"]
 
 
-def test_half_of_the_batch_left_out(capsys, monkeypatch):
+@pytest.mark.parametrize("cell", SERVE)
+def test_half_of_the_batch_left_out(cell, capsys, monkeypatch):
     from repro_torch.serve.engine import Engine
     init = Engine.__init__
 
@@ -135,5 +159,17 @@ def test_half_of_the_batch_left_out(capsys, monkeypatch):
             return prefill(params, {"tokens": toks})
         self.prefill = first_half
     monkeypatch.setattr(Engine, "__init__", halved)
-    line = _run(SERVE, capsys)
+    line = _run(cell, capsys)
     assert line["correct"] is False
+
+
+def test_the_scan_forgets_its_state_between_chunks(capsys, monkeypatch):
+    """Mamba-2's SSD scan run on each chunk from a zero state
+    (``controls.py --fault scan_forgets``, which reads it at the cell's
+    size): the rehearsal's prompts span 2-8 chunks of 8."""
+    from synbench import controls
+    controls.FAULTS["scan_forgets"](monkeypatch.setattr)
+    line = _run("mamba2-780m.serve_prefill_pool", capsys)
+    assert line["correct"] is False
+    assert line["checks"]["logit_err"]["value"] > \
+        line["checks"]["logit_err"]["limit"]

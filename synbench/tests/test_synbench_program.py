@@ -17,7 +17,7 @@ from synbench.reference import emulation as emu_ref
 
 ROOT = os.path.dirname(spec.HERE)
 CELLS = ["qwen2-7b.emulate_prompts", "mamba2-780m.emulate_decode",
-         "qwen2-7b.serve_prefill"]
+         "qwen2-7b.serve_prefill", "mamba2-780m.serve_prefill_pool"]
 #: the metrics this file's readers give, by cell: (span metrics, row
 #: metrics, which read the timed kernel's stamps on a card only)
 NEW = {"qwen2-7b.emulate_prompts": (
@@ -26,7 +26,9 @@ NEW = {"qwen2-7b.emulate_prompts": (
        "mamba2-780m.emulate_decode": (
            ["walk_ms.decode", "schedule_ms.decode", "launch_ms.decode"],
            ["ring_rows_roofline.decode"]),
-       "qwen2-7b.serve_prefill": (["pad_share", "prefill_enqueue_ms"], [])}
+       "qwen2-7b.serve_prefill": (["pad_share", "prefill_enqueue_ms"], []),
+       "mamba2-780m.serve_prefill_pool": (
+           ["pad_share.ssd", "prefill_enqueue_ms.ssd"], [])}
 
 
 def _span(name, id_, parent, request, start, end, counts=None):
@@ -204,6 +206,14 @@ def test_the_runners_other_facts_are_as_they_were(cell, monkeypatch):
         assert f["useful_flops"] == sum(
             runner.ref.request_flops(sizes, r.prompt)
             for w in runner.waves for r in w["meta"])
+        # one flash launch a layer where the model has attention (sum()
+        # adds floats with compensation: the runner adds them in turn)
+        L = runner.ref.dims(sizes)["L"] if "qwen2" in cell else 0
+        assert f["flash_bound_s"] == pytest.approx(sum(
+            L * max(f_ / peaks.BF16_FLOPS, b / peaks.HBM_BYTES_PER_S)
+            for f_, b in (runner.ref.flash_launch(
+                sizes, runner.B, max(r.prompt for r in w["meta"]))
+                for w in runner.waves if L)), rel=1e-12, abs=0)
     else:
         assert sorted(f) == ["requests", "roofline_s", "segment_bound_s",
                              "segment_launches", "segment_symbol"]

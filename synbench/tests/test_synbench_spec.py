@@ -66,6 +66,21 @@ def test_cell_resolves_to_its_files(cell):
 
 
 @pytest.mark.parametrize("cell", CELLS)
+def test_the_reference_holds_what_the_runner_calls(cell):
+    """Each runner names what it calls on the configuration's reference
+    module (``REFERENCE_NEEDS``); a cell whose reference lacks one would
+    fail on the card only when the runner reached it."""
+    c = spec.resolve(ROOT, cell)
+    ref, runner = c.reference(), c.runner()
+    missing = [n for n in runner.REFERENCE_NEEDS if not hasattr(ref, n)]
+    assert not missing, f"reference/{c.config['reference']}.py lacks " \
+        f"{missing}, which runners/{c.mix['runner']}.py calls"
+    if "flash_layers" in runner.REFERENCE_NEEDS and \
+            ref.flash_layers(c.sizes):
+        assert callable(ref.flash_launch)
+
+
+@pytest.mark.parametrize("cell", CELLS)
 def test_rehearsal_is_tiny(cell):
     c = spec.resolve(ROOT, cell, rehearse=True)
     assert c.mix.get("tile", 64) <= 64 or c.mix["runner"] != "emulate"

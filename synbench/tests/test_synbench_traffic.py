@@ -6,7 +6,8 @@ import pytest
 
 from synbench.core import spec, traffic
 
-MIXES = ["emulate_prompts", "emulate_decode", "serve_prefill"]
+MIXES = ["emulate_prompts", "emulate_decode", "serve_prefill",
+         "serve_prefill_pool"]
 
 
 def _mix(name):
@@ -39,12 +40,29 @@ def test_every_cycle_holds_the_same_requests(name):
                 == want
 
 
-def test_groups_arrive_whole():
-    mix = _mix("serve_prefill")
+@pytest.mark.parametrize("name", ["serve_prefill", "serve_prefill_pool"])
+def test_groups_arrive_whole(name):
+    mix = _mix(name)
     groups = [sorted(g) for g in traffic.cycle(mix)]
     got = _take(mix, 11, 2 * mix["cycle"])
     for _, members in itertools.groupby(got, key=lambda r: r[2]):
         assert sorted((p, o) for p, o, _ in members) in groups
+
+
+def test_the_pool_holds_the_mix_of_serve_prefill_in_waves_of_its_slots():
+    """The pool's prompts are ``serve_prefill``'s distribution: its cycle
+    is 120 quantiles of the same log-uniform 1024-4096, rounded to 128,
+    in three waves of 40 (the engine's slots), one token each."""
+    pool, mix = _mix("serve_prefill_pool"), _mix("serve_prefill")
+    assert pool["prompt"] == mix["prompt"] and pool["output"] == mix["output"]
+    groups = traffic.cycle(pool)
+    assert [len(g) for g in groups] == [pool["batch_slots"]] * 3
+    lens = sorted(p for g in groups for p, _ in g)
+    assert lens[0] == 1152 and lens[-1] == 4096      # 1030 rounded up
+    assert all(p % 128 == 0 for p in lens)
+    # padded to each wave's longest, 43.66% of the positions are padding
+    pad = 1 - sum(lens) / sum(len(g) * max(p for p, _ in g) for g in groups)
+    assert round(100 * pad, 2) == 43.66
 
 
 def test_quantiles_hand_worked():
